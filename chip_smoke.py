@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the four CUDA
 kernels, holds each against its plain PyTorch twin at the main path's
-shapes, then drives the loopback chain (``models.chain.chain_batch``) at
-GOLDEN64 batch 128 and LTE1024 batch 32 and checks every frame locks with
-BER 0, that every kernel launched, and that the kernel chain's bits equal
-the plain chain's on the same noise.
+shapes (with the bytes it moves and its share of the card's 3.35 TB/s),
+then drives the loopback chain (``models.chain.chain_batch``) at GOLDEN64
+batch 128, LTE1024 batch 32 and LTE2048 batch 32 and checks every frame
+locks with BER 0, that every kernel launched, and that the kernel chain's
+bits equal the plain chain's on the same noise.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
@@ -24,7 +25,11 @@ import torch
 SEED = 0
 CHAIN_REPS = 20
 TIMING_REPS = 20
-CELLS = (("GOLDEN64", 128), ("LTE1024", 32))
+CELLS = (("GOLDEN64", 128), ("LTE1024", 32), ("LTE2048", 32))
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+L2_EVICT_BYTES = 256 << 20    # read before each timed launch: > 5x the L2
+SLEEP_CLOCK_HZ = 2.0e9        # above the H100's 1.98 GHz boost clock, so a
+                              # sleep of t * this many cycles lasts >= t
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "ofdm_mod": ("lte_gnu_radio_code_tpu_torch/csrc/ofdm_mod.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/ofdm_mod.py:165"),
@@ -44,22 +49,41 @@ def card() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
+def event_ms(fn, reps: int, evict: bool = True) -> float:
+    """Mean device time of fn() over reps launches, by a pair of CUDA events
+    around each.  With evict, a 256 MB buffer is read before each launch, so
+    fn starts with none of its inputs in the 50 MB L2 and reads them from
+    HBM.  The device sleeps while the host queues the timed launches (for
+    twice the host's own time to queue them), so that host dispatch, tens of
+    microseconds a call, leaves no gaps between kernels shorter than that."""
+    buf = torch.empty(L2_EVICT_BYTES // 4, device="cuda") if evict else None
+
+    def queue(events):
+        for start, end in events:
+            if evict:
+                buf.sum()
+            start.record()
+            fn()
+            end.record()
+
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queue([(torch.cuda.Event(), torch.cuda.Event()) for _ in range(reps)])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CLOCK_HZ))
+    queue(events)
+    events[-1][1].synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def compare(name, kernel_fn, plain_fn, atol, rtol=0.0) -> dict:
+def compare(name, kernel_fn, plain_fn, inputs, atol, rtol=0.0) -> dict:
     """Kernel vs plain twin on the same inputs, then timed in turns
-    (plain, kernel, kernel, plain)."""
+    (plain, kernel, kernel, plain) from a cold L2; bytes = the inputs read
+    once and the output written once."""
     k, p = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if k.shape != p.shape or not bool(torch.isfinite(k).all()):
@@ -72,8 +96,11 @@ def compare(name, kernel_fn, plain_fn, atol, rtol=0.0) -> dict:
                              f"atol {atol}, rtol {rtol}")
     t = [event_ms(f, TIMING_REPS)
          for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
-    return {"max_abs_err": err, "ms": (t[1] + t[2]) / 2,
-            "plain_ms": (t[0] + t[3]) / 2, "atol": atol, "rtol": rtol}
+    ms = (t[1] + t[2]) / 2
+    nbytes = sum(x.nbytes for x in inputs) + k.nbytes
+    return {"max_abs_err": err, "ms": ms, "plain_ms": (t[0] + t[3]) / 2,
+            "atol": atol, "rtol": rtol, "bytes": nbytes,
+            "hbm_share": nbytes / (ms * 1e-3) / HBM_BYTES_PER_S}
 
 
 def kernel_checks(cfg, batch, dev, cell) -> dict:
@@ -94,15 +121,15 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
     rows = txofdm._grid(cfg, bits).reshape(-1, cfg.nfft).contiguous()
     w = device_table(ofdm_mod._idft_mats, dev, cfg.nfft)
     out["ofdm_mod"] = compare(
-        "ofdm_mod", lambda: ofdm_mod._mod_rows(cfg, rows, w),
-        lambda: ofdm_mod.mod_rows_plain(cfg, rows, w), atol=2e-5)
-    tx = ofdm_mod._mod_rows(cfg, rows, w).reshape(batch, cfg.frame_len)
+        "ofdm_mod", lambda: ofdm_mod.modulate_rows(cfg, rows),
+        lambda: ofdm_mod.mod_rows_plain(cfg, rows, w), (rows,), atol=2e-5)
+    tx = ofdm_mod.modulate_rows(cfg, rows).reshape(batch, cfg.frame_len)
 
     out["channel_conv"] = compare(
         "channel_conv",
         lambda: channel_conv.apply_channel_frames(tx, h, cfg.nfft),
         lambda: channel_conv.apply_channel_frames_plain(tx, h, cfg.nfft),
-        atol=1e-5)
+        (tx,), atol=1e-5)
     clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
     sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -112,7 +139,8 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
            else dict(atol=3e-3, rtol=2e-4))
     out["sync_search"] = compare(
         "sync_search", lambda: sync_search.sync_corr_abs(cfg, rxs, n_trials),
-        lambda: sync_search.sync_corr_abs_plain(cfg, rxs, n_trials), **tol)
+        lambda: sync_search.sync_corr_abs_plain(cfg, rxs, n_trials), (rxs,),
+        **tol)
 
     corr = sync_search.sync_corr_abs(cfg, rxs, n_trials)
     ptr, delay, _, _, first = sync.first_lock(cfg, corr)
@@ -125,11 +153,13 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
     coeff = coeff[:, None, :].expand(batch, k, -1).reshape(batch * k, -1)
     out["equalize"] = compare(
         "equalize", lambda: equalize.demod_windows(cfg, win, coeff),
-        lambda: equalize.demod_windows_plain(cfg, win, coeff), atol=2e-4)
+        lambda: equalize.demod_windows_plain(cfg, win, coeff), (win, coeff),
+        atol=2e-4)
     for name, r in out.items():
         print(f"{cell}: {name:13s} kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  max|err| {r['max_abs_err']:.3e} "
-              f"(atol {r['atol']}, rtol {r['rtol']})")
+              f"(atol {r['atol']}, rtol {r['rtol']})  {r['bytes']} bytes, "
+              f"{r['hbm_share']:.3f} of 3.35 TB/s (L2 evicted)")
     return out
 
 
@@ -167,7 +197,7 @@ def chain_run(cfg, batch, dev, cell) -> dict:
         raise AssertionError(f"{cell}: {int((~found).sum())} frames unlocked")
     if float(ber.max()) != 0.0:
         raise AssertionError(f"{cell}: BER {float(ber.max())} != 0")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in kernels.KERNEL_MODULES if counts[k] == 0]
     if missing:
         raise AssertionError(f"{cell}: kernels not launched: {missing}")
 
@@ -250,7 +280,8 @@ def main() -> int:
                             "source": src, "replaces": replaces,
                             "launches": run["launches"][name],
                             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                            "plain_ms": c["plain_ms"]})
+                            "plain_ms": c["plain_ms"], "bytes": c["bytes"],
+                            "hbm_share": c["hbm_share"]})
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every one ends with the stream
 SIGNATURES = {
-    "ofdm_mod_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "equalize_demod": (_P, _P, _P, _I, _P, _I, _I, _I, _P),
+    "ofdm_mod_fft": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
+    "equalize_fft": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "channel_conv": (_P, _P, _I, _I, _I, _P, _I, _P),
     "sync_search": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                     _F, _P),
@@ -104,6 +104,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    FFT kernels load two complex64 a thread)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -3,9 +3,12 @@ power normalisation, and the combined timing-derotation x MMSE coefficient.
 
 Port of ``lte_gnu_radio_code_tpu/pallas_kernels/equalize.py``
 (``demod_windows``, plus the plain-torch glue ``data_windows``,
-``combined_coeff`` and ``equalize_data_symbols``).  On a CUDA tensor
-:func:`demod_windows` launches ``csrc/equalize.cu``; on a CPU tensor it runs
-the plain twin :func:`demod_windows_plain`.
+``combined_coeff`` and ``equalize_data_symbols``).  On a CPU tensor
+:func:`demod_windows` runs the plain twin :func:`demod_windows_plain` (the
+DFT on the data bins as a product with the ``[nfft, B]`` basis).  On a CUDA
+tensor it launches the shared-memory FFT kernel ``equalize_fft``
+(``csrc/equalize.cu``) for a power-of-two nfft in [16, 4096] and raises
+``ValueError`` for any other (``kernels/fft.py``).
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ import torch
 from ..ops import sync as sync_ops
 from ..utils.params import OFDMConfig, used_bins
 from ..utils.tables import device_table
-from . import _cuda
+from . import _cuda, fft
 
-launches = 0          # kernel launches since the last reset
+launches = 0   # kernel launches since the last reset
 
 
 @functools.lru_cache(maxsize=16)
@@ -31,6 +34,12 @@ def _dft_bins_mats(nfft: int, num_bins: int) -> np.ndarray:
     n = np.arange(nfft)
     return np.exp(-2j * np.pi * np.outer(n, np.asarray(bins)) / nfft
                   ).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=16)
+def _bin_index(nfft: int, num_bins: int) -> np.ndarray:
+    """[B] int32 wrapped FFT indices of the data bins, in used_bins order."""
+    return np.asarray(used_bins(nfft, num_bins)[1], np.int32)
 
 
 def demod_windows_plain(cfg: OFDMConfig, win: torch.Tensor,
@@ -52,18 +61,25 @@ def demod_windows(cfg: OFDMConfig, win: torch.Tensor,
     global launches
     if _cuda.on_cpu(win, coeff):
         return demod_windows_plain(cfg, win, coeff)
-    k, nb = win.shape[0], cfg.num_data_bins
-    _cuda.check(win, "win", torch.complex64, (k, cfg.nfft))
+    k, nb, nfft, dev = win.shape[0], cfg.num_data_bins, cfg.nfft, win.device
+    fft.require(nfft)
+    _cuda.check(win, "win", torch.complex64, (k, nfft))
     _cuda.check(coeff, "coeff", torch.complex64,
                 (nb,) if coeff.ndim == 1 else (k, nb))
-    v = device_table(_dft_bins_mats, win.device, cfg.nfft, nb)
-    out = torch.empty(k, nb, dtype=torch.complex64, device=win.device)
-    if k:
-        _cuda.launch("equalize_demod", win.device, win.data_ptr(),
-                     v.data_ptr(), coeff.data_ptr(),
-                     0 if coeff.ndim == 1 else nb, out.data_ptr(), k,
-                     cfg.nfft, nb)
-        launches += 1
+    if nb % 2:
+        raise ValueError(f"num_data_bins {nb}: used_bins needs an even "
+                         "count")
+    ld = 0 if coeff.ndim == 1 else nb
+    out = torch.empty(k, nb, dtype=torch.complex64, device=dev)
+    if not k:
+        return out
+    win, coeff = _cuda.aligned(win), _cuda.aligned(coeff)
+    idx = device_table(_bin_index, dev, nfft, nb)
+    tw = device_table(fft.twiddles, dev, nfft)
+    _cuda.launch("equalize_fft", dev, win.data_ptr(), idx.data_ptr(),
+                 tw.data_ptr(), coeff.data_ptr(), ld, out.data_ptr(), k, nfft,
+                 nb)
+    launches += 1
     return out
 
 

@@ -25,9 +25,9 @@ def _as_array(v) -> np.ndarray:
         re, im = (np.asarray(p, np.float32) for p in v)
         return (re + 1j * im).astype(np.complex64)
     a = np.asarray(v)
-    if a.dtype not in (np.complex64, np.float32, np.int64):
+    if a.dtype not in (np.complex64, np.float32, np.int64, np.int32):
         raise TypeError(f"table of dtype {a.dtype}: expected complex64, "
-                        "float32, int64 or an (re, im) float32 pair")
+                        "float32, int64, int32 or an (re, im) float32 pair")
     return a
 
 

@@ -1,7 +1,9 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch twin,
 and the loopback chain through them, on a CUDA device; every test skips
-without one.  Imports no JAX, so it also runs on a GPU host that has none
-(``--noconftest`` skips tests/conftest.py, which imports jax):
+without one.  K1 and K2 are held at the shipped configs and at every nfft
+their FFT kernels take (16 to 4096); any other nfft raises.  Imports no
+JAX, so it also runs on a GPU host that has none (``--noconftest`` skips
+tests/conftest.py, which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -14,7 +16,7 @@ import torch
 
 from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import (_cuda, channel_conv,
-                                                  equalize, ofdm_mod,
+                                                  equalize, fft, ofdm_mod,
                                                   sync_search)
 from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm, txofdm
 from lte_gnu_radio_code_tpu_torch.ops import channel
@@ -53,22 +55,33 @@ def _frames(cfg, dev, batch, seed):
                                        max_impulse=cfg.nfft)
 
 
+def _route_counts():
+    c = kernels.launch_counts()
+    return {k: c[k] for k in ("ofdm_mod", "equalize")}
+
+
+def _k1_check(cfg, grid, vals):
+    """K1 on a full grid and on data values against the twin."""
+    w = torch.from_numpy(ofdm_mod._idft_mats(cfg.nfft)).to(grid.device)
+    torch.testing.assert_close(ofdm_mod.modulate_rows(cfg, grid),
+                               ofdm_mod.mod_rows_plain(cfg, grid, w),
+                               atol=2e-5, rtol=0)
+    _, bins = used_bins(cfg.nfft, cfg.num_data_bins)
+    wb = torch.from_numpy(ofdm_mod._idft_bin_mats(cfg.nfft, bins)).to(
+        grid.device)
+    torch.testing.assert_close(ofdm_mod.modulate_data_vals(cfg, vals, bins),
+                               ofdm_mod.mod_rows_plain(cfg, vals, wb),
+                               atol=2e-5, rtol=0)
+
+
 @CFGS
 def test_k1_matches_twin(dev, cfg):
     bits, _ = _frames(cfg, dev, 3, seed=1)
     grid = txofdm._grid(cfg, bits).reshape(-1, cfg.nfft)
-    w = torch.from_numpy(ofdm_mod._idft_mats(cfg.nfft)).to(dev)
-    before = ofdm_mod.launches
-    out = ofdm_mod.modulate_rows(cfg, grid)
-    assert ofdm_mod.launches == before + 1
-    torch.testing.assert_close(out, ofdm_mod.mod_rows_plain(cfg, grid, w),
-                               atol=2e-5, rtol=0)
-    vals = _cplx(dev, 2, 50, cfg.num_data_bins)
-    _, bins = used_bins(cfg.nfft, cfg.num_data_bins)
-    wb = torch.from_numpy(ofdm_mod._idft_bin_mats(cfg.nfft, bins)).to(dev)
-    torch.testing.assert_close(ofdm_mod.modulate_data_vals(cfg, vals, bins),
-                               ofdm_mod.mod_rows_plain(cfg, vals, wb),
-                               atol=2e-5, rtol=0)
+    before = _route_counts()
+    _k1_check(cfg, grid, _cplx(dev, 2, 50, cfg.num_data_bins))
+    after = _route_counts()
+    assert after == {**before, "ofdm_mod": before["ofdm_mod"] + 2}
 
 
 @CFGS
@@ -76,9 +89,77 @@ def test_k1_matches_twin(dev, cfg):
 def test_k2_matches_twin(dev, cfg, per_row):
     win = _cplx(dev, 3, 70, cfg.nfft)
     coeff = _cplx(dev, 4, *((70,) if per_row else ()), cfg.num_data_bins)
+    before = _route_counts()
     torch.testing.assert_close(
         equalize.demod_windows(cfg, win, coeff),
         equalize.demod_windows_plain(cfg, win, coeff), atol=2e-4, rtol=0)
+    after = _route_counts()
+    assert after == {**before, "equalize": before["equalize"] + 1}
+
+
+@CFGS
+def test_k1_k2_zero_rows_give_floor_results(dev, cfg):
+    """An all-zero K1 row and K2 window hit the energy and power floors;
+    the kernels give the twins' (zero) results, with no NaN."""
+    grid = _cplx(dev, 10, 40, cfg.nfft)
+    grid[7] = 0
+    vals = _cplx(dev, 11, 40, cfg.num_data_bins)
+    vals[0] = 0
+    _k1_check(cfg, grid, vals)
+    out = ofdm_mod.modulate_rows(cfg, grid)
+    assert bool(torch.isfinite(out).all()) and not bool(out[7].any())
+    win = _cplx(dev, 12, 40, cfg.nfft)
+    win[3] = 0
+    coeff = _cplx(dev, 13, 40, cfg.num_data_bins)
+    got = equalize.demod_windows(cfg, win, coeff)
+    torch.testing.assert_close(
+        got, equalize.demod_windows_plain(cfg, win, coeff), atol=2e-4,
+        rtol=0)
+    assert bool(torch.isfinite(got).all()) and not bool(got[3].any())
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048,
+                                  4096])
+def test_fft_kernels_at_every_size(dev, nfft):
+    """K1 (full grid and bins form) and K2 (per-bin and per-row coeff)
+    against their twins at each nfft the FFT kernels take, inputs built
+    directly: rows of 4 to 256 threads, one to 64 rows a block, more rows
+    than the card holds blocks (so blocks walk the rows and prefetch), an
+    all-zero row, and the shared-memory opt-in past 48 KB at 4096."""
+    cfg = dataclasses.replace(GOLDEN64, nfft=nfft, cp_len=nfft // 4,
+                              num_data_bins=nfft - nfft // 4)
+    rows = (1 << 22) // nfft + 3
+    grid, win = _cplx(dev, 20, rows, nfft), _cplx(dev, 21, rows, nfft)
+    grid[rows // 2] = 0
+    win[rows // 3] = 0
+    before = _route_counts()
+    _k1_check(cfg, grid, _cplx(dev, 22, rows, cfg.num_data_bins))
+    for coeff in (_cplx(dev, 23, cfg.num_data_bins),
+                  _cplx(dev, 24, rows, cfg.num_data_bins)):
+        torch.testing.assert_close(
+            equalize.demod_windows(cfg, win, coeff),
+            equalize.demod_windows_plain(cfg, win, coeff), atol=2e-4,
+            rtol=0)
+    assert _route_counts() == {"ofdm_mod": before["ofdm_mod"] + 2,
+                               "equalize": before["equalize"] + 2}
+
+
+def test_other_nfft_raises(dev):
+    """nfft 96 is not a power of two: the CUDA wrappers launch nothing and
+    raise ValueError (the twins still take it)."""
+    cfg = dataclasses.replace(GOLDEN64, nfft=96, cp_len=24)
+    assert not fft.takes_fft(cfg.nfft)
+    before = _route_counts()
+    _, bins = used_bins(cfg.nfft, cfg.num_data_bins)
+    with pytest.raises(ValueError):
+        ofdm_mod.modulate_rows(cfg, _cplx(dev, 14, 45, cfg.nfft))
+    with pytest.raises(ValueError):
+        ofdm_mod.modulate_data_vals(
+            cfg, _cplx(dev, 15, 45, cfg.num_data_bins), bins)
+    with pytest.raises(ValueError):
+        equalize.demod_windows(cfg, _cplx(dev, 16, 45, cfg.nfft),
+                               _cplx(dev, 17, 45, cfg.num_data_bins))
+    assert _route_counts() == before
 
 
 @pytest.mark.parametrize("name", ["Fading", "IMT16", "Ideal"])
@@ -113,7 +194,8 @@ def test_chain_batch_through_kernels(dev):
     h = chain.loopback_taps(cfg)
     kernels.reset_launch_counts()
     r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
-    assert all(n == 1 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts == dict.fromkeys(kernels.KERNEL_MODULES, 1), counts
     assert bool(r.found.all()) and float(r.ber.max()) == 0.0
     p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
                           plain=True)
