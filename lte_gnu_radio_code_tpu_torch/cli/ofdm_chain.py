@@ -3,9 +3,12 @@ through the port's main path (``models.chain.chain_batch``: the four kernels
 on a CUDA device, their plain twins on the CPU).
 
 Port of ``lte_gnu_radio_code_tpu/cli/ofdm_chain.py``, loopback mode only
-(the pickle and streaming modes are not ported yet).  Example::
+(the pickle and streaming modes are not ported yet).  It runs on the CUDA
+device unless asked for the CPU, and raises where there is no CUDA device
+instead of moving to the CPU on its own::
 
-    python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain --device cuda
+    python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain
+    python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain --device cpu
 """
 
 from __future__ import annotations
@@ -27,10 +30,22 @@ def build_config(args):
         stride=args.stride).validate()
 
 
-def main(argv=None):
+def resolve_device(name: str) -> torch.device:
+    """The torch device ``name``; raises where it is a CUDA device and none
+    is present (no move to the CPU unless the caller asks for it)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is present; "
+                           "pass --device cpu to run the kernels' plain "
+                           "twins on the CPU")
+    return device
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cpu",
-                   help="torch device, e.g. cpu or cuda")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the default; raises without "
+                        "one) or cpu")
     p.add_argument("--nfft", type=int, default=64)
     p.add_argument("--cp-len", type=int, default=16)
     p.add_argument("--num-ofdm-symb", type=int, default=240)
@@ -44,12 +59,16 @@ def main(argv=None):
                    choices=["Ideal", "IMT1", "IMT16", "Fading", "AWGN"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true", help="machine-readable out")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     from ..models import chain, rxofdm
 
     cfg = build_config(args)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     bits = torch.as_tensor(np.random.default_rng(args.seed).integers(
         0, 2, (1, cfg.num_bits), dtype=np.int32), device=device)
     n_trials, num_patterns = rxofdm.plan_rx(cfg, cfg.frame_len + cfg.nfft - 1)

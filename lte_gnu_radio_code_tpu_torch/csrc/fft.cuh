@@ -1,5 +1,5 @@
 // Block-level complex FFT of rows in shared memory, shared by K1
-// (ofdm_mod.cu) and K2 (equalize.cu).
+// (ofdm_mod.cu), K2 (equalize.cu) and K4's FFT route (sync_search.cu).
 //
 // Stockham autosort: the result comes out in natural order with no bit
 // reversal.  Radix 4 throughout, with one radix-2 stage last where log2(N)
@@ -13,6 +13,9 @@
 // w^(j k) is entry j k N / (P R) of the table e^(-2 pi i m / N), m < N,
 // that the wrapper builds in float64 (kernels/fft.py:twiddles).  The
 // inverse conjugates the twiddles and the butterfly's +-i (unscaled).
+// Reads are contiguous across a row's threads; the writes of the P = 1 and
+// P = 4 stages are not, and each thread rotates the order of its four
+// stores so that a half-warp's stores still spread over all banks.
 //
 // A row has T = min(N / 4, 256) threads; a 256-thread block holds 256 / T
 // rows, each with two buffers: the row arrives in the staging buffer, the
@@ -139,8 +142,25 @@ __device__ __forceinline__ void stage(const float2* src, float2* dst,
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int i = t + u * T, k = i & (P - 1), o = (i - k) * R + k;
+    if constexpr (R == 4 && P <= 4) {
+      // Output j of butterfly i lands at 4 i + j (P = 1) or 16 (i / 4) +
+      // i % 4 + 4 j (P = 4): for one j the 16 threads of a half-warp hit 4
+      // of the 16 eight-byte bank pairs, a 4-way conflict.  Thread i stores
+      // its outputs in the order j = (jj + i / 4) % 4 instead, which
+      // spreads each store over all 16.
+      const int r = (i >> 2) & 3;
+      float2 a[R], b[R];
 #pragma unroll
-    for (int j = 0; j < R; ++j) dst[o + j * P] = y[u][j];
+      for (int jj = 0; jj < R; ++jj)
+        a[jj] = (r & 1) ? y[u][(jj + 1) & 3] : y[u][jj];
+#pragma unroll
+      for (int jj = 0; jj < R; ++jj) b[jj] = (r & 2) ? a[(jj + 2) & 3] : a[jj];
+#pragma unroll
+      for (int jj = 0; jj < R; ++jj) dst[o + ((jj + r) & 3) * P] = b[jj];
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) dst[o + j * P] = y[u][j];
+    }
   }
   row_sync<T>();
 }
@@ -171,6 +191,13 @@ __device__ __forceinline__ void transform(const float2* c, float2* w,
 __device__ __forceinline__ void copy16_async(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+// 8 bytes (one complex64) the same way, for rows that start on any sample.
+__device__ __forceinline__ void copy8_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src) : "memory");
 }
 
@@ -210,13 +237,14 @@ int dispatch(int nfft, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch Kern over `rows` rows with Rows<N>'s shared memory: as many blocks
-// as fit on the card at once, or one per group of R rows if fewer.  The
-// shared-memory opt-in and the count of resident blocks are set up at
-// Kern's first launch on a device; later launches are the <<<>>> call.
-template <int N, auto Kern, class... Args>
+// Launch Kern over `rows` rows with kBufs buffers of shared memory a row
+// (Rows<N>'s two, or more): as many blocks as fit on the card at once, or
+// one per group of R rows if fewer.  The shared-memory opt-in and the count
+// of resident blocks are set up at Kern's first launch on a device; later
+// launches are the <<<>>> call.
+template <int N, auto Kern, int kBufs = 2, class... Args>
 int launch(int rows, cudaStream_t stream, Args... args) {
-  constexpr int smem = Rows<N>::smem, kMaxDevices = 64;
+  constexpr int smem = Rows<N>::smem / 2 * kBufs, kMaxDevices = 64;
   static std::atomic<int> resident[kMaxDevices];   // 0: not set up yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

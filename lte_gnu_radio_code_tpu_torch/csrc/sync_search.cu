@@ -5,138 +5,329 @@
 // stride-spaced trial p < n_trials and every delay hypothesis d < D = cp+1,
 //
 //   out[b, p, d] = |sum_{m < klen} x[b, cp + p s + m] K_d[m]|
-//                  * sqrt(L / max(sum_l (N E_l - |DC_l|^2 - |NY_l|^2), 1e-30))
+//                  * sqrt(L / max(power[b, p], 1e-30))
 //
-// where window l of trial p is the nfft samples from m = l (nfft + cp), E_l
-// is the window's energy, DC_l its sum and NY_l its sum signed by (-1)^n
-// over the in-window index n (the Parseval form of the synch-bin power,
-// valid when num_synch_bins == nfft - 2).  Samples past the frame are zero.
+// where window l < m_synch of trial p is the nfft samples from
+// m = l (nfft + cp), K_d[l (nfft + cp) + n] = sum_k e^{-2 pi i b_k (n - d) /
+// nfft} conj(ZC[l L' + k]) over the L' synch bins b_k (zero between the
+// windows), L = m_synch L', and power is the windows' energy on the synch
+// bins, sum_l sum_k |X_l[b_k]|^2.  Samples past the frame are zero.
 //
-// What bounds it on the H100: the correlation, 8 n_trials D klen float32
-// FLOPs per frame (compute-bound: each x sample feeds D delays and each
-// kernel tap TP trials).  No TF32: lock decisions compare against a gate.
+// The TPU kernel took the sum over m as a dense product, the form its
+// matrix unit wanted.  Here the wrapper picks one of two kernels by a rule
+// on the shape (kernels/sync_search.py:route); neither falls back to the
+// other.
 //
-// Design: block (trial tile of 32, delay tile of 32, frame).  It loads the
-// one contiguous span of x its 32 trials read ((32-1) s + klen samples, for
-// the dense s = 1 search and the strided s = cp-1 one alike) into shared
-// memory once; that span is the Hankel tile, row p starting at p s.  Warps
-// compute the per-trial Parseval norms from it, then the block streams
-// K_d through shared memory in 32-deep chunks; thread (trial group, delay)
-// accumulates 4 trials of one delay.  Delays past D are masked (D = 17, 257
-// and 513 are not multiples of the tile).  The TPU version's G-group
-// interleave and block-banded weights, which existed for sublane
-// alignment, are gone; the stride is an argument.
+// FFT route (sync_search_fft; every strided search, LTE1024 and LTE2048).
+// K_d is a circular shift by d of one length-nfft sequence, so a trial's
+// whole row of D delays is the forward FFT of each window, a multiply by
+// conj(ZC) on the synch bins, their sum over l, and one unscaled inverse
+// FFT: 5 (m_synch + 1) nfft log2 nfft operations a trial where the product
+// takes 8 D m_synch nfft (37 times fewer at LTE2048), and the power is the
+// sum of |X_l[b_k]|^2 taken on the way.  What bounds it on the H100: the
+// transforms' shared-memory traffic and barriers (fft.cuh); HBM sees x
+// once, since neighbouring trials' windows overlap in L2, and out once.
+// Design: as K1 and K2, a row of nfft / 4 threads (at most 256) per trial,
+// 256 / that many trials a block, blocks walking the (frame, trial) pairs
+// grid-stride.  A window arrives in the staging buffer by 8-byte cp.async
+// (window starts are odd multiples of 8 bytes as often as even ones; samples
+// past the frame are written as zeros), the first forward stage takes it to
+// the work buffer, and the next window is queued while this one goes on.
+// The multiply by the conj(ZC) table (indexed by bin, zero off the synch
+// bins) runs in place; with m_synch > 1 the products add up in a third
+// buffer.  The inverse runs in place and the first D outputs are scaled
+// and stored.
+//
+// Direct route (sync_search_direct; the dense stride-1 search of GOLDEN64,
+// and any shape the FFT route does not take, such as an nfft that is not a
+// power of two).  With stride 1 the FFT form would transform a whole window
+// for every new sample, so the product stays.  What bounds it: float32
+// FFMA issue, 8 D klen operations a trial.  Design: a thread owns one trial
+// (lanes take consecutive trials, so their x reads are conflict-free) and
+// all 17 delays of the block's delay tile, 34 accumulators in registers:
+// per tap it reads one sample and 9 broadcast 16-byte words of K for 68
+// FFMA, where the first version of this kernel read 5 words for 16.  More
+// trials a thread (2, 4) read fewer words per FFMA but ran slower: fewer
+// warps were left to hide the reads' latency (PERF.md, K4).  D = 17 is
+// one tile exactly (larger D take ceil(D / 17) tiles in blockIdx.y, at most
+// 6 % of lanes idle from D = 33 on).  A block takes 256 trials of one frame:
+// their span of x goes to shared memory once, K in stages of 64 taps (all
+// of K in one stage at GOLDEN64).  The window sums that the power needs
+// (energy, and the even and odd samples' sums, which give DC and Nyquist)
+// are taken from the same x registers in the same pass, with the Parseval
+// form power = sum_l (nfft E_l - |DC_l|^2 - |NY_l|^2), valid for the
+// canonical all-but-DC-and-Nyquist synch bins (the wrapper checks).
+// Results go through shared memory so that the stores are coalesced.
+// Where the span of 256 trials would not fit in shared memory (a large
+// stride), the block takes the trials that fit.
+//
+// Float32 throughout, no TF32, no fast-math; the twiddles are the float64-
+// built table of kernels/fft.py.
+
+#include <atomic>
 
 #include "common.cuh"
+#include "fft.cuh"
 
 namespace {
 
-constexpr int kTpt = 4;                        // trials per thread
-constexpr int kTy = lte::kThreads / 32;        // trial groups (warps)
-constexpr int kTp = kTpt * kTy;                // trials per block
-constexpr int kDt = 32;                        // delays per block
-constexpr int kKc = 32;                        // K_d taps per stage
+// ---------------------------------------------------------------- FFT route
 
+// zc: [m0, N] conj(ZC) by FFT bin, zero off the synch bins.  kBufs: 2, or 3
+// where m0 > 1 (the sum over windows then has its own buffer).
+template <int N, int kBufs>
 __global__ void __launch_bounds__(lte::kThreads)
-sync_search_kernel(const float2* __restrict__ x, int n,
-                   const float2* __restrict__ kt, int klen, int nd,
-                   float* __restrict__ out, int n_trials, int cp, int stride,
-                   int nfft, int m0, int rxb, float big_l) {
-  extern __shared__ float2 smem[];
-  const int span = (kTp - 1) * stride + klen;
-  float2* xs = smem;                           // [span]
-  float2* ks = xs + span;                      // [kKc][kDt]
-  float* scale = (float*)(ks + kKc * kDt);     // [kTp]
+sync_search_fft_kernel(const float2* __restrict__ x, int n,
+                       const float2* __restrict__ zc,
+                       const float2* __restrict__ tw, float* __restrict__ out,
+                       int rows, int n_trials, int cp, int stride, int m0,
+                       int rxb, float big_l) {
+  using Rows = lte::fft::Rows<N>;
+  constexpr int T = Rows::T, R = Rows::R;
+  extern __shared__ float4 smem[];
+  __shared__ float red[lte::kThreads / 32];
+  const int t = threadIdx.x % T, slot = threadIdx.x / T;
+  float2* c = reinterpret_cast<float2*>(smem) + slot * kBufs * N;  // staging
+  float2* w = c + N;                                               // work
+  float2* y = kBufs == 3 ? w + N : w;                              // sum
+  const int groups = (rows + R - 1) / R, nd = cp + 1;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int p0 = blockIdx.x * kTp, d0 = blockIdx.y * kDt, b = blockIdx.z;
+  // queue window l of the slot's row in group g into c
+  auto fetch = [&](int g, int l) {
+    const int r = g * R + slot, b = r / n_trials, p = r - b * n_trials;
+    const long start = cp + (long)p * stride + (long)l * rxb;
+    const float2* xb = x + (long)b * n + start;
+    const long left = r < rows ? (long)n - start : 0;   // samples in frame
+    for (int i = t; i < N; i += T) {
+      if (i < left)
+        lte::fft::copy8_async(c + i, xb + i);
+      else
+        c[i] = make_float2(0.f, 0.f);
+    }
+  };
+
+  int g = blockIdx.x;
+  if (g < groups) fetch(g, 0);
+  for (; g < groups; g += gridDim.x) {
+    const int r = g * R + slot, next = g + gridDim.x;
+    float pw[1] = {0.f};
+    for (int l = 0; l < m0; ++l) {
+      lte::fft::copy_wait();
+      lte::fft::row_sync<T>();   // window landed; last row's y all read
+      auto fetch_next = [&] {
+        if (l + 1 < m0)
+          fetch(g, l + 1);
+        else if (next < groups)
+          fetch(next, 0);
+      };
+      lte::fft::transform<N, T, false>(c, w, tw, t, 1.f, fetch_next);
+      const float2* z = zc + l * N;
+      for (int i = t; i < N; i += T) {
+        const float2 v = w[i], q = __ldg(z + i);
+        if (q.x != 0.f || q.y != 0.f) pw[0] += v.x * v.x + v.y * v.y;
+        const float2 u = lte::fft::cmul(v, q);
+        y[i] = (kBufs == 3 && l > 0) ? lte::fft::cadd(y[i], u) : u;
+      }
+    }
+    lte::fft::row_sum<T>(pw, red);
+    lte::fft::row_sync<T>();     // y written by the whole row
+    lte::fft::transform<N, T, true>(y, y, tw, t, 1.f, [] {});
+    if (r >= rows) continue;
+    const float scale = sqrtf(big_l / fmaxf(pw[0], 1e-30f));
+    float* o = out + (long)r * nd;
+    for (int d = t; d < nd; d += T) {
+      const float2 v = y[d];
+      o[d] = sqrtf(v.x * v.x + v.y * v.y) * scale;
+    }
+  }
+}
+
+// ------------------------------------------------------------- direct route
+
+constexpr int kDt = 17;              // delays a thread, and a block, takes
+constexpr int kDp = 18;              // a tap's row of K in shared memory
+constexpr int kKc = 64;              // taps of K a stage (even)
+constexpr int kSmemMax = 200 << 10;  // bytes a block may ask for
+constexpr int kMinBlocks = 3;        // blocks an SM it is compiled for
+constexpr int kUnroll = 8;           // pairs of taps unrolled in its loop
+
+__host__ __device__ constexpr int direct_span(int tile, int stride, int m0,
+                                              int rxb, int nfft) {
+  return (tile - 1) * stride + (m0 - 1) * rxb + nfft;
+}
+
+__host__ __device__ constexpr int even_up(int v) { return (v + 1) & ~1; }
+
+// Shared memory of a block of `tile` trials: the span of x and a stage of
+// K, then (in the same bytes) the tile of results.
+inline long direct_smem(int tile, int stride, int m0, int rxb, int nfft) {
+  const long taps =
+      ((long)even_up(direct_span(tile, stride, m0, rxb, nfft)) +
+       kKc * kDp) * (long)sizeof(float2);
+  const long res = (long)tile * kDt * (long)sizeof(float);
+  return taps > res ? taps : res;
+}
+
+// Trials a block takes: 256, or as many as have their span in shared
+// memory; 0 where one trial's taps alone do not fit (or nfft is odd).
+inline int direct_tile(int stride, int nfft, int m0, int rxb) {
+  if (nfft % 2) return 0;
+  int tile = lte::kThreads;
+  while (tile > 1 && direct_smem(tile, stride, m0, rxb, nfft) > kSmemMax)
+    tile /= 2;
+  return direct_smem(tile, stride, m0, rxb, nfft) > kSmemMax ? 0 : tile;
+}
+
+// kt: [klen, nd] K_d[m], tap-major.  Block (trial tile, delay tile, frame);
+// thread tid owns trial tid of the tile.  80 registers: three blocks an SM.
+__global__ void __launch_bounds__(lte::kThreads, kMinBlocks)
+sync_search_direct_kernel(const float2* __restrict__ x, int n,
+                          const float2* __restrict__ kt, int nd,
+                          float* __restrict__ out, int n_trials, int tile,
+                          int cp, int stride, int nfft, int m0, int rxb,
+                          float big_l) {
+  extern __shared__ float4 smem[];
+  const int span = direct_span(tile, stride, m0, rxb, nfft);
+  float2* xs = reinterpret_cast<float2*>(smem);          // [span]
+  float2* ks = xs + even_up(span);                       // [kKc][kDp]
+  float* os = reinterpret_cast<float*>(smem);            // [tile][kDt], later
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * tile, d0 = blockIdx.y * kDt, b = blockIdx.z;
   const float2* xb = x + (long)b * n;
   const long base = cp + (long)p0 * stride;
   for (int i = tid; i < span; i += lte::kThreads) {
     const long j = base + i;
     xs[i] = j < n ? xb[j] : make_float2(0.f, 0.f);
   }
+
+  const float2* xt = xs + (tid < tile ? tid : 0) * stride;   // the trial
+  float2 acc[kDt];
+#pragma unroll
+  for (int j = 0; j < kDt; ++j) acc[j] = make_float2(0.f, 0.f);
+  float pw = 0.f;
+
+  for (int l = 0; l < m0; ++l) {
+    float e = 0.f;                                 // window energy
+    float2 se = make_float2(0.f, 0.f), so = se;    // even and odd samples
+    for (int n0 = 0; n0 < nfft; n0 += kKc) {
+      const int kmax = min(kKc, nfft - n0), m = l * rxb + n0;
+      __syncthreads();               // xs loaded; previous stage consumed
+      for (int i = tid; i < kmax * kDt; i += lte::kThreads) {
+        const int kk = i / kDt, dd = i - kk * kDt, gd = d0 + dd;
+        ks[kk * kDp + dd] = gd < nd ? __ldg(kt + (long)(m + kk) * nd + gd)
+                                    : make_float2(0.f, 0.f);
+      }
+      __syncthreads();
+      // one tap: a sample and 9 words of K for 68 FFMA
+      auto tap = [&](int kk, float2& s) {
+        const float4* k4 = reinterpret_cast<const float4*>(ks + kk * kDp);
+        float4 kv[kDp / 2];
+#pragma unroll
+        for (int j = 0; j < kDp / 2; ++j) kv[j] = k4[j];
+        const float2 xv = xt[m + kk];
+        e = fmaf(xv.x, xv.x, fmaf(xv.y, xv.y, e));
+        s.x += xv.x;
+        s.y += xv.y;
+#pragma unroll
+        for (int j = 0; j < kDt; ++j) {
+          const float kr = (j & 1) ? kv[j / 2].z : kv[j / 2].x;
+          const float ki = (j & 1) ? kv[j / 2].w : kv[j / 2].y;
+          acc[j].x = fmaf(xv.x, kr, fmaf(-xv.y, ki, acc[j].x));
+          acc[j].y = fmaf(xv.x, ki, fmaf(xv.y, kr, acc[j].y));
+        }
+      };
+#pragma unroll kUnroll
+      for (int kk = 0; kk < kmax; kk += 2) {   // nfft and kKc are even
+        tap(kk, se);
+        tap(kk + 1, so);
+      }
+    }
+    const float dcr = se.x + so.x, dci = se.y + so.y;
+    const float nyr = se.x - so.x, nyi = se.y - so.y;
+    pw += (float)nfft * e - (dcr * dcr + dci * dci) - (nyr * nyr + nyi * nyi);
+  }
+
+  __syncthreads();                   // xs and ks consumed: os takes over
+  if (tid < tile) {
+    const float scale = sqrtf(big_l / fmaxf(pw, 1e-30f));
+#pragma unroll
+    for (int j = 0; j < kDt; ++j)
+      os[tid * kDt + j] =
+          sqrtf(acc[j].x * acc[j].x + acc[j].y * acc[j].y) * scale;
+  }
   __syncthreads();
-
-  // per-trial Parseval power: warp w takes trials w, w + 8, ...
-  for (int pl = warp; pl < kTp; pl += kTy) {
-    const float2* xw = xs + (long)pl * stride;
-    float s_pow = 0.f;
-    for (int l = 0; l < m0; ++l) {
-      float e = 0.f, dcr = 0.f, dci = 0.f, nyr = 0.f, nyi = 0.f;
-      for (int k = lane; k < nfft; k += 32) {
-        const float2 v = xw[l * rxb + k];
-        const float sg = (k & 1) ? -1.f : 1.f;
-        e += v.x * v.x + v.y * v.y;
-        dcr += v.x;
-        dci += v.y;
-        nyr += sg * v.x;
-        nyi += sg * v.y;
-      }
-      e = lte::warp_sum(e);
-      dcr = lte::warp_sum(dcr);
-      dci = lte::warp_sum(dci);
-      nyr = lte::warp_sum(nyr);
-      nyi = lte::warp_sum(nyi);
-      s_pow += (float)nfft * e - (dcr * dcr + dci * dci) -
-               (nyr * nyr + nyi * nyi);
-    }
-    if (lane == 0) scale[pl] = sqrtf(big_l / fmaxf(s_pow, 1e-30f));
-  }
-
-  const int dl = lane, ty = warp;
-  float2 acc[kTpt];
-#pragma unroll
-  for (int i = 0; i < kTpt; ++i) acc[i] = make_float2(0.f, 0.f);
-  for (int k0 = 0; k0 < klen; k0 += kKc) {
-    __syncthreads();                           // previous stage consumed
-    for (int i = tid; i < kKc * kDt; i += lte::kThreads) {
-      const int kk = i / kDt, dd = i % kDt;
-      const int gk = k0 + kk, gd = d0 + dd;
-      ks[i] = (gk < klen && gd < nd) ? kt[(long)gk * nd + gd]
-                                     : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    const int kmax = min(kKc, klen - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      const float2 kv = ks[kk * kDt + dl];
-#pragma unroll
-      for (int i = 0; i < kTpt; ++i) {
-        const float2 xv = xs[(long)(ty + kTy * i) * stride + k0 + kk];
-        acc[i].x = fmaf(xv.x, kv.x, fmaf(-xv.y, kv.y, acc[i].x));
-        acc[i].y = fmaf(xv.x, kv.y, fmaf(xv.y, kv.x, acc[i].y));
-      }
-    }
-  }
-  __syncthreads();                             // scale[] from all warps
-  const int d = d0 + dl;
-  if (d >= nd) return;
-#pragma unroll
-  for (int i = 0; i < kTpt; ++i) {
-    const int pl = ty + kTy * i, p = p0 + pl;
-    if (p < n_trials) {
-      const float mag = sqrtf(acc[i].x * acc[i].x + acc[i].y * acc[i].y);
-      out[((long)b * n_trials + p) * nd + d] = mag * scale[pl];
+  const int np = min(tile, n_trials - p0), dn = min(kDt, nd - d0);
+  float* o = out + ((long)b * n_trials + p0) * nd + d0;
+  if (dn == nd && nd == kDt) {       // whole rows: the tile is contiguous
+    for (int i = tid; i < np * kDt; i += lte::kThreads) o[i] = os[i];
+  } else {
+    for (int i = tid; i < np * dn; i += lte::kThreads) {
+      const int pl = i / dn, d = i - pl * dn;
+      o[(long)pl * nd + d] = os[pl * kDt + d];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int sync_search(const void* x, int batch, int n, const void* kt,
-                           int klen, int nd, void* out, int n_trials, int cp,
-                           int stride, int nfft, int m0, int rxb, float big_l,
-                           void* stream) {
-  const size_t span = (size_t)(kTp - 1) * stride + klen;
-  const size_t smem = span * sizeof(float2) + kKc * kDt * sizeof(float2) +
-                      kTp * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sync_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// x [batch, n] complex64; zc: [m0, nfft] conj(ZC) by FFT bin, zero off the
+// synch bins; tw: fft.cuh's table for nfft (a power of two in [16, 4096],
+// cp < nfft); out [batch, n_trials, cp + 1] float32.
+extern "C" int sync_search_fft(const void* x, int batch, int n, const void* zc,
+                               const void* tw, void* out, int n_trials, int cp,
+                               int stride, int nfft, int m0, int rxb,
+                               float big_l, void* stream) {
+  if (cp >= nfft) return (int)cudaErrorInvalidValue;
+  const int rows = batch * n_trials;
+  return lte::fft::dispatch(nfft, [&](auto nn) {
+    constexpr int N = decltype(nn)::value;
+    auto go = [&](auto bufs) {
+      constexpr int kBufs = decltype(bufs)::value;
+      return lte::fft::launch<N, sync_search_fft_kernel<N, kBufs>, kBufs>(
+          rows, (cudaStream_t)stream, (const float2*)x, n, (const float2*)zc,
+          (const float2*)tw, (float*)out, rows, n_trials, cp, stride, m0, rxb,
+          big_l);
+    };
+    return m0 > 1 ? go(std::integral_constant<int, 3>{})
+                  : go(std::integral_constant<int, 2>{});
+  });
+}
+
+// 1 where the direct kernel takes this shape (one trial's taps fit in a
+// block's shared memory and nfft is even), else 0.  The wrapper asks before
+// it builds the table of K.
+extern "C" int sync_search_direct_fits(int stride, int nfft, int m0, int rxb) {
+  return direct_tile(stride, nfft, m0, rxb) > 0;
+}
+
+// x [batch, n] complex64; kt [klen, nd] complex64 K_d[m], tap-major; out
+// [batch, n_trials, nd] float32.  cudaErrorInvalidValue where
+// sync_search_direct_fits gives 0.
+extern "C" int sync_search_direct(const void* x, int batch, int n,
+                                  const void* kt, int nd, void* out,
+                                  int n_trials, int cp, int stride, int nfft,
+                                  int m0, int rxb, float big_l, void* stream) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> opted[kMaxDevices];   // shared-memory opt-in done
+  const int tile = direct_tile(stride, nfft, m0, rxb);
+  if (tile == 0) return (int)cudaErrorInvalidValue;
+  const long smem = direct_smem(tile, stride, m0, rxb, nfft);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_trials + kTp - 1) / kTp, (nd + kDt - 1) / kDt, batch);
-  sync_search_kernel<<<grid, lte::kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)x, n, (const float2*)kt, klen, nd, (float*)out,
-      n_trials, cp, stride, nfft, m0, rxb, big_l);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev].load()) {
+    err = cudaFuncSetAttribute(sync_search_direct_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev].store(true);
+  }
+  const dim3 grid((n_trials + tile - 1) / tile, (nd + kDt - 1) / kDt, batch);
+  sync_search_direct_kernel<<<grid, lte::kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      (const float2*)x, n, (const float2*)kt, nd, (float*)out, n_trials, tile,
+      cp, stride, nfft, m0, rxb, big_l);
   return (int)cudaGetLastError();
 }

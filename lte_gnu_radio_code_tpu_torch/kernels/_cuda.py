@@ -33,8 +33,10 @@ SIGNATURES = {
     "ofdm_mod_fft": (_P, _P, _I, _P, _P, _I, _I, _I, _P),
     "equalize_fft": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "channel_conv": (_P, _P, _I, _I, _I, _P, _I, _P),
-    "sync_search": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                    _F, _P),
+    "sync_search_fft": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _P),
+    "sync_search_direct": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _P),
 }
 
 
@@ -75,6 +77,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.sync_search_direct_fits.argtypes = (_I, _I, _I, _I)   # host only
+    lib.sync_search_direct_fits.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = (_I,)
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

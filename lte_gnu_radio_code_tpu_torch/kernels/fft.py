@@ -1,5 +1,6 @@
-"""The FFT kernels of K1 (``ofdm_mod``) and K2 (``equalize``): which lengths
-they take, the radix plan they run, and the twiddle table they read.
+"""The FFT kernels of K1 (``ofdm_mod``), K2 (``equalize``) and K4's FFT
+route (``sync_search``): which lengths they take, the radix plan they run,
+and the twiddle table they read.
 
 The rule is on the shape alone: on a CUDA tensor the wrappers launch the
 shared-memory FFT kernels (``csrc/fft.cuh``) for an nfft that is a power of

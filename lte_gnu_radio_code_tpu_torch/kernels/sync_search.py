@@ -1,16 +1,33 @@
 """K4: the fused sync search — |corr| of every stride-spaced trial and delay
-hypothesis, with the Parseval power normalisation fused in.
+hypothesis, with the synch-bin power normalisation fused in.
 
 Port of ``lte_gnu_radio_code_tpu/pallas_kernels/sync_search.py``
-(``sync_corr_abs``).  On a CUDA tensor the wrapper launches
-``csrc/sync_search.cu`` once for the whole frame batch; on a CPU tensor it
-runs the plain twin ``ops.fast_sync.sync_corr_abs_fast``.  The trial stride
-is ``cfg.stride``.
+(``sync_corr_abs``).  On a CPU tensor the wrapper runs the plain twin
+``ops.fast_sync.sync_corr_abs_fast`` (a bank of convolutions).  On a CUDA
+tensor it launches one of the two kernels of ``csrc/sync_search.cu``, once
+for the whole frame batch, chosen by :func:`route`, a rule on the shape
+alone:
+
+* ``"fft"`` — per trial a forward FFT of each synch window, a multiply by
+  conj(ZC) on the synch bins and one inverse FFT, in shared memory: where
+  nfft is a power of two in [16, 4096] (``kernels/fft.py:takes_fft``),
+  cp + 1 <= nfft, and the dense product would cost at least
+  ``FFT_ADVANTAGE`` times the FFT form's operations.  Every strided
+  configuration (LTE1024, LTE2048) takes it.
+* ``"direct"`` — the dense product sum_m x[cp + p s + m] K_d[m], register-
+  tiled: every other shape, the stride-1 search of GOLDEN64 among them, as
+  long as one trial's taps fit in a block's shared memory (the library's
+  ``sync_search_direct_fits`` says); ``ValueError`` otherwise.
+
+Neither kernel falls back to the other or to a plain version.
+``sync_corr_abs_fft_plain`` is the FFT route's plain version, used by the
+tests and ``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -18,24 +35,99 @@ import torch
 from ..ops import fast_sync
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
-from . import _cuda
+from . import _cuda, fft
 
-launches = 0          # kernel launches since the last reset
+launches = 0                                  # kernel launches since reset
+route_launches = {"fft": 0, "direct": 0}      # the same, by route (running)
 
 sync_corr_abs_plain = fast_sync.sync_corr_abs_fast     # the plain twin
+sync_corr_abs_fft_plain = fast_sync.sync_corr_abs_fft  # the FFT form, plain
+
+# The FFT route is taken where the product costs at least this many times
+# the FFT form's operations: the in-block transforms run far below the FFMA
+# rate that the register-tiled product reaches (PERF.md, K4).
+FFT_ADVANTAGE = 4.0
+
+
+def direct_ops(nfft: int, cp: int, m_synch: int) -> int:
+    """Float32 operations of one trial in the product form: a complex
+    multiply-add (8) per delay and tap inside the synch windows."""
+    return 8 * (cp + 1) * m_synch * nfft
+
+
+def fft_ops(nfft: int, m_synch: int) -> int:
+    """Float32 operations of one trial in the FFT form: m_synch forward
+    transforms and one inverse at 5 N log2 N, and per window and bin a
+    complex multiply-add and the power (12)."""
+    return (5 * (m_synch + 1) * nfft * int(math.log2(nfft)) +
+            12 * m_synch * nfft)
+
+
+def route(nfft: int, cp: int, stride: int, m_synch: int) -> str:
+    """``"fft"`` or ``"direct"``: the kernel a CUDA tensor of this shape
+    goes to (module docstring).  The stride belongs to the shape a route
+    is asked for, so the rule takes it, but it moves nothing: both forms do
+    their work once per trial, whatever the trials' spacing."""
+    if (fft.takes_fft(nfft) and cp + 1 <= nfft and
+            direct_ops(nfft, cp, m_synch) >=
+            FFT_ADVANTAGE * fft_ops(nfft, m_synch)):
+        return "fft"
+    return "direct"
 
 
 @functools.lru_cache(maxsize=32)
 def _kernels_t(cfg: OFDMConfig) -> np.ndarray:
-    """[klen, cp+1] correlation kernels, tap-major for the kernel."""
+    """[klen, cp+1] correlation kernels, tap-major for the direct kernel."""
     return np.ascontiguousarray(fast_sync._kernels(cfg).T)
+
+
+def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor,
+            n_trials: int) -> torch.Tensor:
+    """Launch the kernel of route ``kind`` on a CUDA tensor (the wrapper's
+    CUDA branch; tests and ``chip_smoke.py`` call it to hold either kernel
+    at a shape the rule gives to the other)."""
+    global launches
+    x2 = x.reshape(-1, x.shape[-1])
+    b, n = x2.shape
+    _cuda.check(x2, "x", torch.complex64, (b, n))
+    nfft, cp, m0, dev = cfg.nfft, cfg.cp_len, cfg.m_synch, x.device
+    nd = cp + 1
+    big_l = float(m0 * cfg.num_synch_bins)
+    out = torch.empty(b, n_trials, nd, dtype=torch.float32, device=dev)
+    if kind == "fft":
+        fft.require(nfft)
+        if nd > nfft:
+            raise ValueError(f"cp {cp} >= nfft {nfft}: the FFT route reads "
+                             "the delays from one length-nfft inverse")
+        args = ("sync_search_fft", dev, x2.data_ptr(), b, n,
+                device_table(fast_sync._zc_by_bin, dev, cfg).data_ptr(),
+                device_table(fft.twiddles, dev, nfft).data_ptr(),
+                out.data_ptr(), n_trials, cp, cfg.stride, nfft, m0,
+                cfg.rx_b_len, big_l)
+    elif kind == "direct":
+        if not _cuda.library().sync_search_direct_fits(cfg.stride, nfft, m0,
+                                                        cfg.rx_b_len):
+            raise ValueError(f"nfft {nfft}, cp {cp}, m_synch {m0}: one "
+                             "trial's taps do not fit in shared memory")
+        args = ("sync_search_direct", dev, x2.data_ptr(), b, n,
+                device_table(_kernels_t, dev, cfg).data_ptr(), nd,
+                out.data_ptr(), n_trials, cp, cfg.stride, nfft, m0,
+                cfg.rx_b_len, big_l)
+    else:
+        raise ValueError(f"unknown route {kind!r}")
+    if b and n_trials:
+        _cuda.launch(*args)
+        launches += 1
+        route_launches[kind] += 1
+    return out.reshape(*x.shape[:-1], n_trials, nd)
 
 
 def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor,
                   n_trials: int) -> torch.Tensor:
     """|corr| [n_trials, cp+1] for x [n], [B, n_trials, cp+1] for x [B, n]
-    (``sync_search.sync_corr_abs``, batched over frames)."""
-    global launches
+    (``sync_search.sync_corr_abs``, batched over frames).  A CPU tensor
+    takes the plain twin; a CUDA tensor takes the kernel that
+    ``route(nfft, cp, stride, m_synch)`` names, or raises."""
     if cfg.num_synch_bins != cfg.nfft - 2:
         raise ValueError("Parseval normalisation requires the canonical "
                          "all-but-DC/Nyquist synch bins")
@@ -43,16 +135,5 @@ def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor,
         raise ValueError("the (-1)^n window sign needs even nfft+cp")
     if _cuda.on_cpu(x):
         return sync_corr_abs_plain(cfg, x, n_trials)
-    x2 = x.reshape(-1, x.shape[-1])
-    b, n = x2.shape
-    _cuda.check(x2, "x", torch.complex64, (b, n))
-    kt = device_table(_kernels_t, x.device, cfg)
-    klen, nd = kt.shape
-    out = torch.empty(b, n_trials, nd, dtype=torch.float32, device=x.device)
-    if b and n_trials:
-        _cuda.launch("sync_search", x.device, x2.data_ptr(), b, n,
-                     kt.data_ptr(), klen, nd, out.data_ptr(), n_trials,
-                     cfg.cp_len, cfg.stride, cfg.nfft, cfg.m_synch,
-                     cfg.rx_b_len, float(cfg.m_synch * cfg.num_synch_bins))
-        launches += 1
-    return out.reshape(*x.shape[:-1], n_trials, nd)
+    return _launch(route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch),
+                   cfg, x, n_trials)

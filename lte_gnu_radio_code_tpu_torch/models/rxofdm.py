@@ -122,8 +122,10 @@ def rx_frames_batch(cfg: OFDMConfig, xs: torch.Tensor, n_trials: int,
     coeff = equalize.combined_coeff(cfg, delay_idx, chan_full)  # [B, nb]
     k = win.shape[1]
     coeff_rows = coeff[:, None, :].expand(b, k, coeff.shape[-1])
+    # with one frame the reshape of the expanded view copies nothing and
+    # stays strided: K2 takes contiguous rows
     ph = demod(cfg, win.reshape(b * k, cfg.nfft),
-               coeff_rows.reshape(b * k, -1))
+               coeff_rows.reshape(b * k, -1).contiguous())
     hard, _, _ = modulation.qpsk_llr_frames(ph.reshape(b, k, -1))
     return BatchRxResult(hard, found, ptr, delay_idx)
 

@@ -6,6 +6,14 @@ Port of ``lte_gnu_radio_code_tpu/ops/fast_sync.py`` (``_kernels``,
 p and delay d, corr[p, d] = sum_m x[cp + p*stride + m] K_d[m], and the
 synch-bin power is sum_l (N E_l - |DC_l|^2 - |NY_l|^2) over length-N box
 sums of |x|^2, x and (-1)^n x (valid when num_synch_bins == nfft - 2).
+
+:func:`sync_corr_abs_fft` is the same function in its FFT form, batched
+over frames and trials: K_d is a circular shift by d of one length-N
+sequence, so a trial's row of delays is the forward FFT of each synch
+window, a multiply by conj(ZC) on the synch bins and one inverse FFT
+(``ops/sync.py``: ``sync_spectra`` + ``sync_correlate_ifft`` in one pass).
+It is the plain version of K4's FFT route; nothing on the main path calls
+it.
 """
 
 from __future__ import annotations
@@ -94,4 +102,48 @@ def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor,
         s_pow = s_pow + (cfg.nfft * e - dc2 - ny2)[:, :n_trials]
     scale = torch.sqrt(L / torch.clamp(s_pow, min=1e-30))
     out = corr.abs() * scale[..., None]
+    return out[0] if squeeze else out
+
+
+@functools.lru_cache(maxsize=32)
+def _zc_by_bin(cfg: OFDMConfig) -> np.ndarray:
+    """[m_synch, nfft] complex64: conj(ZC[l L + k]) at FFT index b_k of
+    synch window l, zero off the synch bins."""
+    L = cfg.num_synch_bins
+    bins = np.asarray(used_bins(cfg.nfft, L)[1])
+    out = np.zeros((cfg.m_synch, cfg.nfft), np.complex64)
+    out[:, bins] = np.conj(zc_for_config(cfg)).reshape(cfg.m_synch, L)
+    return out
+
+
+def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor,
+                      n_trials: int) -> torch.Tensor:
+    """|corr| [B, n_trials, cp+1] for x [B, n] ([n_trials, cp+1] for x [n])
+    in the FFT form: per trial, |N ifft(sum_l fft(window_l) conj(ZC_l))[d]|
+    * sqrt(L / max(sum_l sum_k |fft(window_l)[b_k]|^2, 1e-30)), d <= cp.
+    Samples past the buffer read as zeros.  Computes in x's precision
+    (complex64, or complex128 for a float64 evaluation)."""
+    if cfg.cp_len >= cfg.nfft:
+        raise ValueError("the FFT form reads delays 0..cp from one "
+                         "length-nfft inverse: it needs cp < nfft")
+    squeeze = x.ndim == 1
+    x = x.reshape(-1, x.shape[-1])
+    nfft, cp, s, m0 = cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch
+    if not n_trials:
+        out = x.real.new_zeros(x.shape[0], 0, cp + 1)
+        return out[0] if squeeze else out
+    need = cp + (n_trials - 1) * s + (m0 - 1) * cfg.rx_b_len + nfft
+    if need > x.shape[1]:
+        x = F.pad(x, (0, need - x.shape[1]))
+    zc = device_table(_zc_by_bin, x.device, cfg).to(x.dtype)
+    on_bins = zc[0] != 0
+    y, power = 0.0, 0.0
+    for l in range(m0):
+        win = x[:, cp + l * cfg.rx_b_len:].unfold(1, nfft, s)[:, :n_trials]
+        f = torch.fft.fft(win, dim=-1)                       # [B, p, N]
+        power = power + (f.real ** 2 + f.imag ** 2)[..., on_bins].sum(-1)
+        y = y + f * zc[l]
+    corr = nfft * torch.fft.ifft(y, dim=-1)[..., : cp + 1]
+    L = m0 * cfg.num_synch_bins
+    out = corr.abs() * torch.sqrt(L / power.clamp_min(1e-30))[..., None]
     return out[0] if squeeze else out

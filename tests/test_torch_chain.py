@@ -146,7 +146,38 @@ def test_make_chain_loopback_golden64():
 
 
 def test_cli_loopback(capsys):
-    out = ofdm_chain.main(["--json"])
+    out = ofdm_chain.main(["--json", "--device", "cpu"])
     assert out == {"found": True, "lock_ptr": 16, "delay_idx": 1,
                    "ber": 0.0}
     assert '"found": true' in capsys.readouterr().out
+
+
+def test_cli_runs_on_the_card_by_default(monkeypatch):
+    """--device defaults to cuda, and without a CUDA device the CLI raises
+    instead of moving to the CPU."""
+    assert ofdm_chain.build_parser().parse_args([]).device == "cuda"
+    assert ofdm_chain.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ofdm_chain.main(argv)
+
+
+def test_single_frame_batch_hands_k2_contiguous_rows(monkeypatch):
+    """With one frame the per-row coefficients are an expanded view; the
+    batched RX must hand K2 contiguous rows (its CUDA wrapper refuses any
+    other), as the CLI's one-frame loopback does on the card."""
+    from lte_gnu_radio_code_tpu_torch.kernels import equalize
+    seen = []
+    real = equalize.demod_windows
+
+    def spy(cfg, win, coeff):
+        seen.append((win.is_contiguous(), coeff.is_contiguous(),
+                     tuple(coeff.shape)))
+        return real(cfg, win, coeff)
+
+    monkeypatch.setattr(equalize, "demod_windows", spy)
+    out = ofdm_chain.main(["--json", "--device", "cpu"])
+    assert out["found"] and out["ber"] == 0.0
+    k = GOLDEN64.num_data_symb
+    assert seen == [(True, True, (k, GOLDEN64.num_data_bins))]

@@ -1,9 +1,12 @@
 """Each hand-written CUDA kernel of the port against its plain PyTorch twin,
 and the loopback chain through them, on a CUDA device; every test skips
 without one.  K1 and K2 are held at the shipped configs and at every nfft
-their FFT kernels take (16 to 4096); any other nfft raises.  Imports no
-JAX, so it also runs on a GPU host that has none (``--noconftest`` skips
-tests/conftest.py, which imports jax):
+their FFT kernels take (16 to 4096); any other nfft raises.  K4's FFT
+kernel is held to both plain versions at every such nfft, its direct
+kernel at the dense search's sizes and at an nfft that is not a power of
+two, and the wrapper to the route rule.  Imports no JAX, so it also runs
+on a GPU host that has none (``--noconftest`` skips tests/conftest.py,
+which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -173,16 +176,115 @@ def test_k3_matches_twin(dev, name):
         rtol=0)
 
 
+K4_TOL = dict(atol=3e-3, rtol=2e-4)   # two summation orders in float32
+
+
+def _k4_cfg(nfft, stride, m_synch=1):
+    cp = nfft // 4
+    return dataclasses.replace(
+        GOLDEN64, nfft=nfft, cp_len=cp, num_synch_bins=nfft - 2,
+        num_data_bins=nfft - nfft // 4, synch_dat=(m_synch, 4 - m_synch),
+        stride=cp - 1 if stride is None else stride).validate()
+
+
+def _k4_check(kind, cfg, x, n_trials):
+    """K4's ``kind`` kernel on x [B, n] (row 0 all zero) against the
+    conv-bank twin and the FFT-form plain version, both on a zero-padded
+    copy so that every trial has its samples; one launch counted on that
+    route; 1-D input equal to its row of the batch."""
+    before = dict(sync_search.route_launches)
+    out = sync_search._launch(kind, cfg, x, n_trials)
+    after = dict(sync_search.route_launches)
+    assert after == {**before, kind: before[kind] + 1}
+    assert out.shape == (x.shape[0], n_trials, cfg.cp_len + 1)
+    assert bool(torch.isfinite(out).all()) and not bool(out[0].any())
+    need = (cfg.cp_len + n_trials * cfg.stride + cfg.m_synch * cfg.rx_b_len)
+    xp = torch.nn.functional.pad(x, (0, max(0, need - x.shape[1])))
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_plain(cfg, xp, n_trials), **K4_TOL)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_fft_plain(cfg, x, n_trials), **K4_TOL)
+    torch.testing.assert_close(sync_search._launch(kind, cfg, x[-1], n_trials),
+                               out[-1], atol=0, rtol=0)
+    torch.testing.assert_close(
+        sync_search._launch(kind, cfg, x[-1:], n_trials)[0], out[-1],
+        atol=0, rtol=0)
+    return out
+
+
 @CFGS
 def test_k4_matches_twin(dev, cfg):
     _, xs = _frames(cfg, dev, 2, seed=6)
     n_trials, _ = rxofdm.plan_rx(cfg, xs.shape[1])
+    kind = "direct" if cfg.stride == 1 else "fft"
+    assert sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride,
+                             cfg.m_synch) == kind
+    before = dict(sync_search.route_launches)
     out = sync_search.sync_corr_abs(cfg, xs, n_trials)
+    assert sync_search.route_launches == {**before, kind: before[kind] + 1}
     torch.testing.assert_close(
         out, sync_search.sync_corr_abs_plain(cfg, xs, n_trials), atol=3e-3,
         rtol=2e-4)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_fft_plain(cfg, xs, n_trials),
+        atol=3e-3, rtol=2e-4)
     torch.testing.assert_close(sync_search.sync_corr_abs(cfg, xs[1], n_trials),
                                out[1], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("m_synch", [1, 2])
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048,
+                                  4096])
+def test_k4_fft_route_at_every_size(dev, nfft, m_synch):
+    """The FFT kernel at each nfft it takes, stride cp - 1 (odd, so window
+    starts fall on 8 and on 16 bytes in turn; frames of odd length too),
+    one and two synch symbols, three frames with more (frame, trial) pairs
+    than the card holds blocks, an all-zero frame, and trials that run past
+    the end of the buffer."""
+    cfg = _k4_cfg(nfft, None, m_synch)
+    n_trials = max(700, (1 << 18) // cfg.stride)
+    n = cfg.cp_len + n_trials * cfg.stride + 1 - (n_trials * cfg.stride) % 2
+    assert n % 2 == 1
+    x = _cplx(dev, 30 + m_synch, 3, n)
+    x[0] = 0
+    _k4_check("fft", cfg, x, n_trials)
+
+
+@pytest.mark.parametrize("nfft,stride,m_synch", [
+    (16, 1, 1), (32, 1, 1), (64, 1, 1), (64, 1, 2), (128, 1, 1), (256, 1, 1),
+    (96, 1, 1), (96, 23, 1), (64, 15, 1), (64, 16, 2), (1024, 255, 1)])
+def test_k4_direct_route(dev, nfft, stride, m_synch):
+    """The direct kernel at the dense search's sizes (one delay tile of 17
+    up to four at nfft 256), at nfft 96 (not a power of two), and strided
+    (odd and even strides; at nfft 1024 a block's trials are cut to the
+    span that fits in shared memory), with trials past the buffer."""
+    cfg = _k4_cfg(nfft, stride, m_synch)
+    n_trials = 3000 // stride + 40
+    n = cfg.cp_len + (n_trials - 30) * stride + cfg.m_synch * cfg.rx_b_len + 1
+    x = _cplx(dev, 40, 3, n)
+    x[0] = 0
+    _k4_check("direct", cfg, x, n_trials)
+
+
+def test_k4_wrapper_follows_the_rule(dev):
+    """nfft 96 goes to the direct kernel through the wrapper; a shape
+    neither kernel takes raises and launches nothing."""
+    cfg = _k4_cfg(96, 23)
+    x = _cplx(dev, 41, 2, 6001)
+    before = dict(sync_search.route_launches)
+    out = sync_search.sync_corr_abs(cfg, x, 200)
+    assert sync_search.route_launches == {**before,
+                                          "direct": before["direct"] + 1}
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_plain(cfg, x, 200), **K4_TOL)
+    with pytest.raises(ValueError):
+        sync_search._launch("fft", cfg, x, 200)
+    big = dataclasses.replace(GOLDEN64, nfft=32768, cp_len=8192,
+                              num_synch_bins=32766, stride=8191)
+    with pytest.raises(ValueError):
+        sync_search.sync_corr_abs(big, _cplx(dev, 42, 1, 70000), 2)
+    assert sync_search.route_launches == {**before,
+                                          "direct": before["direct"] + 1}
 
 
 def test_chain_batch_through_kernels(dev):
@@ -200,6 +302,16 @@ def test_chain_batch_through_kernels(dev):
     p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
                           plain=True)
     assert torch.equal(r.hard_bits, p.hard_bits)
+
+
+def test_cli_loopback_runs_on_the_card(dev):
+    """The entry point with no --device: one frame through the kernels."""
+    from lte_gnu_radio_code_tpu_torch.cli import ofdm_chain
+    kernels.reset_launch_counts()
+    out = ofdm_chain.main(["--json"])
+    assert out == {"found": True, "lock_ptr": 16, "delay_idx": 1,
+                   "ber": 0.0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 1)
 
 
 def test_twins_run_without_tf32(dev):
