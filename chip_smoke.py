@@ -12,6 +12,18 @@ shape, it is also held to the FFT-form plain version and to a float64
 evaluation, and each route is run at both strides.  The loopback entry
 point (``cli.ofdm_chain``) runs once with no ``--device``.
 
+Then the serving path (``runtime.stream.BatchReacqStreamingRx``, the
+continuous multi-detection receiver) takes 16 streams made on the card
+(frames of different bits through the port's TX, Fading channel and AWGN
+at 100 dB, concatenated and cut into chunks) at LTE1024 (16 chunks of
+65280 a ``push_many``), GOLDEN64 (4 of 65520) and LTE2048 (8 of 130816):
+every whole pattern block detected once with the sent bits, kernel path
+== plain path, streaming == whole buffer, ``push_many`` == pushes, batch
+== single stream, resume from a checkpoint == uninterrupted, one K4 and
+one K2 launch a chunk step, no host synchronisation inside a step, a step
+captured and replayed as a CUDA graph, the single-lock ``StreamingRx``,
+and K4 and K2 against their plain versions at the serving shapes.
+
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
@@ -19,9 +31,12 @@ repository.  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,6 +47,14 @@ CHAIN_REPS = 20
 CHAIN_ROUNDS = 3              # the chain is timed this often; median kept
 TIMING_REPS = 20
 CELLS = (("GOLDEN64", 128), ("LTE1024", 32), ("LTE2048", 32))
+# serving shapes: config, streams, chunk length (256 strides at the LTE
+# sizes), chunks a push_many
+SERVING = (("LTE1024", 16, 65280, 16), ("GOLDEN64", 16, 65520, 4),
+           ("LTE2048", 16, 130816, 8))
+SERVING_ROUNDS = 3            # a push_many is timed this often; median kept
+PROFILE_TRIES = 4             # a trace that lost device events is retaken
+# the host's calls that each put one kernel or copy on the device
+LAUNCH_CALL = re.compile(r"cu(da)?(Launch|Memcpy|Memset)")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 66.9e12      # the same: float32 outside the tensor cores
 L2_EVICT_BYTES = 256 << 20    # read before each timed launch: > 5x the L2
@@ -309,11 +332,23 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
     k = win.shape[1]
     win = win.reshape(batch * k, cfg.nfft)
     coeff = coeff[:, None, :].expand(batch, k, -1).reshape(batch * k, -1)
-    out["equalize"] = compare(
+    out["equalize"] = equalize_check(cfg, win, coeff)
+    print_kernel_rows(cell, out)
+    return out
+
+
+def equalize_check(cfg, win, coeff) -> dict:
+    """K2 against its plain version on windows [rows, nfft] with one
+    coefficient row per window, torch.fft.fft of the windows beside it."""
+    from lte_gnu_radio_code_tpu_torch.kernels import equalize
+    return compare(
         "equalize", lambda: equalize.demod_windows(cfg, win, coeff),
         lambda: equalize.demod_windows_plain(cfg, win, coeff), (win, coeff),
         ops=fft_flops(len(win), cfg.nfft) + 12.0 * coeff.numel(),
         library_fn=lambda: torch.fft.fft(win, dim=-1), atol=2e-4)
+
+
+def print_kernel_rows(cell, out) -> None:
     for name, r in out.items():
         print(f"{cell}: {name:13s} kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
@@ -322,7 +357,6 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
               f"{r['max_abs_err']:.3e} (atol {r['atol']}, rtol {r['rtol']})  "
               f"{r['bytes']} bytes, {r['hbm_share']:.3f} of 3.35 TB/s "
               f"(L2 evicted)")
-    return out
 
 
 def chain_run(cfg, batch, dev, cell) -> dict:
@@ -398,29 +432,29 @@ def chain_run(cfg, batch, dev, cell) -> dict:
           f"kernel vs plain chain: bits "
           f"equal, lock_ptr equal {same_lock}/{batch}, delay equal "
           f"{same_delay}/{batch}")
-    busy = profile(step, cell)
+    busy, _ = profile(step, cell)
     print(f"{cell}: device busy {busy:.3f} of {dt * 1e3 / CHAIN_REPS:.3f} "
           f"ms per step: idle share {1 - busy * CHAIN_REPS / (dt * 1e3):.3f}")
     return {"msps": msps, "ms_per_step": dt * 1e3 / CHAIN_REPS,
             "launches": counts}
 
 
-def profile(step, cell, reps=3) -> float:
-    """Device time per chain step by kernel, from torch.profiler; returns
-    the device's busy ms per step."""
-    from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            step(i)
-        torch.cuda.synchronize()
+def profile(step, cell, reps=3) -> tuple[float, float]:
+    """Device time per step by kernel, from a :func:`trace` of reps steps;
+    returns the device's busy ms and its launches (kernels and copies) per
+    step."""
+    prof, seen, made = trace(lambda: [step(i) for i in range(reps)])
     # device kernels only: an operator's row repeats its kernels' time
     rows = sorted(((e.self_device_time_total, e.key)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and
                    e.self_device_time_total > 0), reverse=True)
     total = sum(t for t, _ in rows)
-    print(f"{cell}: profile of {reps} steps, {len(rows)} device kernels:")
+    launches = seen / reps
+    print(f"{cell}: profile of {reps} steps, {len(rows)} device kernels in "
+          f"{launches:.1f} launches a step ({seen} device events for {made} "
+          f"launch calls of the host"
+          f"{'' if seen >= made else ': THE TRACE LOST EVENTS'}):")
     for t, key in rows[:12]:
         print(f"  {t / reps / 1e3:9.4f} ms/step {100 * t / total:5.1f}%  "
               f"{key[:90]}")
@@ -436,7 +470,416 @@ def profile(step, cell, reps=3) -> float:
     for t, c, key in host[:8]:
         print(f"  {t / reps / 1e3:9.4f} ms/step {c // reps:4d} calls  "
               f"{key[:70]}")
-    return total / reps / 1e3
+    return total / reps / 1e3, launches
+
+
+def trace(fn):
+    """A torch.profiler trace of fn() with the device's events complete:
+    (trace, device kernels and copies in it, the host's launch calls in
+    it).  The profiler now and then loses a part of a trace's device events
+    (a whole step's worth in one of some ten traces on the H100 host), so a
+    trace with fewer device events than launch calls is taken again, up to
+    PROFILE_TRIES times; the fullest one is returned."""
+    from torch.profiler import ProfilerActivity
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        seen = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and
+                   e.self_device_time_total > 0)
+        made = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU and
+                   LAUNCH_CALL.match(e.key))
+        if best is None or seen > best[1]:
+            best = (prof, seen, made)
+        if seen >= made:
+            break
+    return best
+
+
+def count_launches(fn) -> int:
+    """Device kernels and copies that one call of fn() launches."""
+    fn()
+    torch.cuda.synchronize()
+    _, seen, made = trace(fn)
+    if seen < made:
+        print(f"count_launches: THE TRACE LOST EVENTS ({seen} device events "
+              f"for {made} launch calls)")
+    return seen
+
+
+def make_streams(cfg, batch, n_samples, dev):
+    """batch continuous streams of n_samples on the card: frames of
+    different seeded bits through the port's TX (K1), one Fading
+    convolution over each whole stream (K3) and AWGN at the config's 100 dB,
+    concatenated.  Returns (streams [batch, n_samples], bits [batch,
+    frames, num_bits])."""
+    from lte_gnu_radio_code_tpu_torch.kernels import channel_conv
+    from lte_gnu_radio_code_tpu_torch.models import chain, txofdm
+    from lte_gnu_radio_code_tpu_torch.ops import channel
+
+    frames = -(-n_samples // cfg.frame_len)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bits = torch.randint(0, 2, (batch * frames, cfg.num_bits), generator=gen,
+                         device=dev, dtype=torch.int32)
+    tx = txofdm.tx_frames(cfg, bits, path="kernel").reshape(batch, -1)
+    clean = channel_conv.apply_channel_frames(tx, chain.loopback_taps(cfg),
+                                              cfg.nfft)
+    sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
+    rx = channel.awgn(cfg, clean, sig_pow[:, None], generator=gen)
+    return rx[:, :n_samples].contiguous(), bits.reshape(batch, frames, -1)
+
+
+def stack_outs(outs):
+    """Per-step chunk outputs as one output with a leading step axis."""
+    return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+
+
+def cat_outs(parts):
+    """Outputs that each carry a leading step axis, end to end."""
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+
+def same_outs(a, b, what, float_atol=None, skip=()) -> float:
+    """Two chunk outputs: integer and bool fields equal; float fields equal
+    too (float_atol None) or within float_atol times the field's largest
+    magnitude where that is above 1 (the peaks reach nfft - 2; phasors and
+    channel estimates are of order 1).  Returns the largest float
+    difference, as a multiple of that scale."""
+    worst = 0.0
+    for name in a._fields:
+        if name in skip:
+            continue
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape:
+            raise AssertionError(f"{what}: {name} {tuple(x.shape)} vs "
+                                 f"{tuple(y.shape)}")
+        if x.dtype.is_floating_point or x.dtype.is_complex:
+            err = float((x - y).abs().max() /
+                        y.abs().max().clamp_min(1.0)) if x.numel() else 0.0
+            worst = max(worst, err)
+            if err > (float_atol or 0.0):
+                raise AssertionError(f"{what}: {name} differs by {err} "
+                                     f"(allowed {float_atol or 0.0})")
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((x != y).sum())} places")
+    return worst
+
+
+def stream_of(outs, b):
+    """Stream b of batch outputs [steps, B, ...]."""
+    return type(outs)(*(f[:, b] for f in outs))
+
+
+def check_detections(cfg, outs, bits, n_real, cell) -> int:
+    """outs [steps, B, det_max, ...] of streams whose first n_real samples
+    are real: every pattern block that lies whole inside them is detected
+    once (no other detection, none twice), with its data demodulated and
+    its hard bits equal to the sent bits.  Returns the detections checked."""
+    block = cfg.pattern_len * cfg.rx_b_len
+    n_whole = (n_real - cfg.cp_len) // block
+    valid = outs.valid.cpu().numpy()
+    ptrs = outs.ptrs.cpu().numpy()
+    ok = outs.demod_ok.cpu().numpy()
+    hard = outs.hard_bits.reshape(*outs.valid.shape, -1).cpu().numpy()
+    sent = bits.reshape(bits.shape[0], -1, hard.shape[-1]).cpu().numpy()
+    lo, hi, total = 0, 0, 0
+    for b in range(valid.shape[1]):
+        v = valid[:, b].reshape(-1)
+        p = ptrs[:, b].reshape(-1)[v]
+        o = ok[:, b].reshape(-1)[v]
+        h = hard[:, b].reshape(len(v), -1)[v]
+        j = np.rint((p - cfg.cp_len) / block).astype(np.int64)
+        off = p - cfg.cp_len - j * block
+        lo, hi = min(lo, int(off.min())), max(hi, int(off.max()))
+        if len(np.unique(j)) != len(j) or np.abs(off).max() > cfg.cp_len + \
+                cfg.stride:
+            raise AssertionError(f"{cell}: stream {b}: a block detected "
+                                 f"twice or off a block: offsets {lo}..{hi}")
+        if not np.array_equal(np.sort(j[o])[:n_whole], np.arange(n_whole)) \
+                or (~o[j < n_whole]).any():
+            raise AssertionError(f"{cell}: stream {b}: {o.sum()} blocks "
+                                 f"demodulated, expected the first {n_whole}")
+        if not np.array_equal(h[o], sent[b][j[o]]):
+            raise AssertionError(f"{cell}: stream {b}: "
+                                 f"{int((h[o] != sent[b][j[o]]).sum())} hard "
+                                 "bits differ from the sent bits")
+        total += int(o.sum())
+    print(f"{cell}: every whole pattern block detected once ({n_whole} a "
+          f"stream, {total} in all, pointer offsets from the block grid "
+          f"{lo}..{hi}), hard bits == sent bits")
+    return total
+
+
+def graph_replay(cfg, chunks, det_max, ref, eager_ms, cell) -> None:
+    """One chunk step captured in a CUDA graph (which a step that waited
+    for the host could not be) and replayed chunk by chunk: outputs against
+    the eager run's, and its time beside the eager loop's.  A measurement:
+    the receivers run the eager loop, where every launch goes through its
+    wrapper and is counted."""
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+
+    k, batch, chunk_len = chunks.shape
+    dev = chunks.device
+    state = rt.reacq_init(cfg, dev, batch)
+    chunk = torch.zeros_like(chunks[0])
+    step = functools.partial(rt.reacq_step, cfg, n_real=chunk_len,
+                             det_max=det_max, fast="kernel",
+                             demod_path="kernel")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(state, chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new_state, out = step(state, chunk)
+        for dst, src in zip(state, new_state):
+            dst.copy_(src)
+
+    def run():
+        for t in state:
+            t.zero_()
+        outs = []
+        for c in chunks:
+            chunk.copy_(c)
+            graph.replay()
+            outs.append(type(out)(*(f.clone() for f in out)))
+        return outs
+
+    worst = same_outs(stack_outs(run()), ref, f"{cell}: graph replay vs eager",
+                      float_atol=2e-6)
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / k)
+    ms = sorted(times)[len(times) // 2]
+    print(f"{cell}: one step captured as a CUDA graph and replayed {k} "
+          f"times: decisions equal to the eager run's, floats within "
+          f"{worst:.1e}; {ms:.3f} ms a step (rounds "
+          f"{', '.join(f'{t:.3f}' for t in times)}) against {eager_ms:.3f} "
+          f"eager: {eager_ms / ms:.2f}x")
+
+
+def single_lock_check(cfg, chunks, bits, cell) -> None:
+    """The single-lock StreamingRx on one stream, on the card by default:
+    it locks on a pattern block (the first whose trial grid gives it a
+    window inside the cyclic prefix), the num_patterns blocks from there
+    come out once each with the sent bits (bits [frames, num_bits] of the
+    stream), one K4 and one K2 launch a step."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import stream_rx
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+
+    rx = rt.StreamingRx(cfg, chunks.shape[-1])
+    kernels.reset_launch_counts()
+    outs = [rx.push(c) for c in chunks] + [rx.finish()]
+    counts = kernels.launch_counts()
+    ids = torch.cat([o.block_ids for o in outs]).cpu().numpy()
+    hard = stream_rx.hard_decide(cfg, torch.cat([o.phasors for o in outs]))
+    hard = hard.reshape(len(ids), -1).cpu().numpy()
+    got = hard[ids >= 0][np.argsort(ids[ids >= 0])]
+    block = cfg.pattern_len * cfg.rx_b_len
+    lock = int(outs[-1].lock_ptr)
+    first = round((lock - cfg.cp_len) / block)      # the block it locked on
+    sent = bits.reshape(-1, hard.shape[-1]).cpu().numpy()[
+        first:first + cfg.num_patterns]
+    if (not bool(outs[-1].found) or
+            abs(lock - cfg.cp_len - first * block) > cfg.cp_len + cfg.stride
+            or sorted(ids[ids >= 0]) != list(range(cfg.num_patterns)) or
+            not np.array_equal(got, sent) or
+            counts["sync_search"] != len(outs) or
+            counts["equalize"] != len(outs)):
+        raise AssertionError(f"{cell}: StreamingRx: found "
+                             f"{bool(outs[-1].found)}, lock {lock}, blocks "
+                             f"{sorted(ids[ids >= 0])}, "
+                             f"{int((got != sent).sum())} bits differ, "
+                             f"launches {counts}")
+    print(f"{cell}: StreamingRx (single lock) on stream 0: locked at "
+          f"{lock} (pattern block {first}), the {cfg.num_patterns} blocks "
+          f"from there out once, bits == sent bits, launches {counts}")
+
+
+def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu) -> tuple:
+    """The serving path at one shape (module docstring).  Returns (launch
+    counts of the main-path run, K4 and K2 against their plain versions at
+    this shape)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+    from lte_gnu_radio_code_tpu_torch.models import stream_rx
+    from lte_gnu_radio_code_tpu_torch.ops import sync
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+
+    n_real = k * chunk_len
+    streams, bits = make_streams(cfg, batch, n_real, dev)
+    chunks = streams.reshape(batch, k, chunk_len).transpose(0, 1).contiguous()
+    want = sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch)
+
+    # -- the main path: the batch receiver as a user builds it --------------
+    rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    rx.push(chunks[0])                                  # warm-up, discarded
+    rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    torch.cuda.synchronize()
+    routes0 = dict(sync_search.route_launches)
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    state_k = rx.state                      # the carry after the K chunks
+    outs = cat_outs([many, stack_outs(rx.finish())])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    routes = {r: v - routes0[r] for r, v in sync_search.route_launches.items()}
+    steps = outs.valid.shape[0]
+    if (counts["sync_search"] != steps or counts["equalize"] != steps or
+            routes != {"fft": 0, "direct": 0, want: steps}):
+        raise AssertionError(f"{cell}: {steps} chunk steps, launches "
+                             f"{counts}, sync_search by route {routes} "
+                             f"(expected all on {want!r})")
+    if rx.det_max != rt.reacq_det_max(cfg, chunk_len) or \
+            outs.phasors.shape != (steps, batch, rx.det_max,
+                                   cfg.synch_dat[1], cfg.num_data_bins) or \
+            not bool(torch.isfinite(outs.phasors.abs()).all()):
+        raise AssertionError(f"{cell}: phasors {tuple(outs.phasors.shape)}")
+    print(f"{cell}: {batch} streams x {k} chunks of {chunk_len} "
+          f"(det_max {rx.det_max}) + {steps - k} flush steps: launches "
+          f"{counts}, sync_search by route {routes}")
+    check_detections(cfg, outs, bits, n_real, cell)
+
+    # -- kernel path against plain path on the same streams -----------------
+    prx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch, fast="conv",
+                                   demod_path="dft")
+    before = kernels.launch_counts()
+    plain = cat_outs([prx.push_many(chunks), stack_outs(prx.finish())])
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{cell}: the plain path launched a kernel")
+    worst = same_outs(outs, plain, f"{cell}: kernel vs plain path",
+                      float_atol=2e-4, skip=("peaks",))
+    peak_err = float((outs.peaks - plain.peaks).abs().max())
+    print(f"{cell}: kernel path == plain path (conv, dft): ptrs, delays, "
+          f"valid, demod_ok, hard bits equal; phasors and chans within "
+          f"{worst:.2e} (allowed 2e-4); peaks within {peak_err:.2e}")
+    del plain
+
+    # -- push_many == K pushes, exactly --------------------------------------
+    srx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    same_outs(stack_outs([srx.push(c) for c in chunks]), many,
+              f"{cell}: pushes vs push_many")
+    same_outs(srx.state, state_k, f"{cell}: carry after pushes vs push_many")
+
+    # -- one stream alone: == its row of the batch, == the whole buffer,
+    #    and resumed from a checkpoint == uninterrupted ----------------------
+    b = 3
+    one = rt.ReacqStreamingRx(cfg, chunk_len)
+    alone = cat_outs([one.push_many(chunks[:, b]), stack_outs(one.finish())])
+    werr = same_outs(alone, stream_of(outs, b), f"{cell}: stream {b} alone "
+                     "vs in the batch", float_atol=2e-5)
+    half = k // 2
+    first = rt.ReacqStreamingRx(cfg, chunk_len)
+    first.push_many(chunks[:half, b])
+    with tempfile.TemporaryDirectory() as tmp:
+        first.save_state(f"{tmp}/reacq.npz")
+        second = rt.ReacqStreamingRx(cfg, chunk_len)
+        second.load_state(f"{tmp}/reacq.npz")
+    resumed = cat_outs([second.push_many(chunks[half:, b]),
+                        stack_outs(second.finish())])
+    same_outs(resumed, type(alone)(*(f[half:] for f in alone)),
+              f"{cell}: resumed vs uninterrupted")
+    whole = stream_rx.rx_detections(
+        cfg, streams[b], sync.n_trials_for(cfg, n_real),
+        max_det=n_real // (cfg.pattern_len * cfg.rx_b_len) + 2,
+        fast="kernel", demod_path="kernel")
+    nb = int(whole.count)
+    v = alone.valid.reshape(-1)
+    keep = v & (alone.ptrs.reshape(-1) <= whole.ptrs[:nb].max())
+    pick = keep.nonzero()[:, 0]
+    for name in ("ptrs", "delays", "demod_ok", "hard_bits", "phasors"):
+        x = getattr(alone, name).reshape(len(v), -1)[pick]
+        y = getattr(whole, name)[:nb].reshape(nb, -1)
+        if x.shape != y.shape or (
+                float((x - y).abs().max()) > 2e-4 if x.dtype.is_complex
+                else not torch.equal(x, y)):
+            raise AssertionError(f"{cell}: stream {b} chunk by chunk vs "
+                                 f"rx_detections on its whole buffer: {name}")
+    print(f"{cell}: push_many == {k} pushes exactly; stream {b} alone == "
+          f"its row of the batch (floats within {werr:.1e}); saved after "
+          f"{half} chunks, loaded into a new receiver, continued == "
+          f"uninterrupted exactly; chunk by chunk == rx_detections on the "
+          f"whole buffer ({nb} detections)")
+    single_lock_check(cfg, chunks[:3, 0], bits[0], cell)
+
+    # -- no step waits for the host ------------------------------------------
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srx.push(chunks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{cell}: a chunk step ran with torch's sync debug mode set to "
+          "\"error\": nothing in it waits for the host")
+
+    # -- timing: Msamples/s of a push_many ending in a synchronize -----------
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        trx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trx.push_many(chunks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = sorted(times)[len(times) // 2]
+    step_ms = dt * 1e3 / k
+    msps = batch * n_real / dt / 1e6
+    rounds = ", ".join(f"{t * 1e3 / k:.3f}" for t in times)
+    print(f"{cell}: push_many of {k} chunks x {batch} streams: "
+          f"{msps:.3f} Msamples/s, {step_ms:.3f} ms a chunk step (median of "
+          f"rounds {rounds}) on {gpu}")
+    prof_rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell)
+
+    # -- the selection's launches, K4 and K2 alone at this shape -------------
+    lag = rt.reacq_lag(cfg)
+    ext = streams[:, chunk_len - lag:2 * chunk_len].contiguous()
+    t_per = chunk_len // max(1, cfg.stride)
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, "kernel")
+    local_ptrs = cfg.cp_len + max(1, cfg.stride) * torch.arange(t_per,
+                                                                 device=dev)
+    crossing = dmax_val > sync.gate_level(cfg)
+    carry = (torch.zeros(batch, dtype=torch.int32, device=dev),
+             torch.zeros(batch, dtype=torch.bool, device=dev))
+
+    def select():
+        return sync.refractory_table(cfg, crossing, (local_ptrs, dmax_ind,
+                                                     dmax_val), rx.det_max,
+                                     cfg.cp_len, *carry)
+
+    sel = count_launches(select)
+    _, (l_ptrs, delays, _), count, _ = select()
+    valid = torch.arange(rx.det_max, device=dev) < count[:, None]
+    _, _, dwin, coeff = stream_rx.detection_rows(
+        cfg, ext, l_ptrs, delays, valid, ext.shape[-1], "dft")
+    nd, nb = cfg.synch_dat[1], cfg.num_data_bins
+    win = dwin.reshape(-1, cfg.nfft)
+    coeff = coeff[:, :, None, :].expand(batch, rx.det_max, nd, nb).reshape(
+        -1, nb).contiguous()
+    print(f"{cell}: device busy {busy:.3f} of {step_ms:.3f} ms a chunk "
+          f"step: idle share {1 - busy / step_ms:.3f}; {launches:.1f} device "
+          f"launches a step, of which the jump selection "
+          f"(refractory_table, {(rx.det_max - 1).bit_length()} rounds) "
+          f"{sel}: share {sel / launches:.3f}; {int(count.sum())} of "
+          f"{batch * rx.det_max} slots hold a detection in the step that K2 "
+          f"is timed on ({len(win)} rows) on {gpu}")
+    checks = {"sync_search": sync_checks(cfg, batch, ext, t_per, cell),
+              "equalize": equalize_check(cfg, win, coeff)}
+    print_kernel_rows(cell, checks)
+    graph_replay(cfg, chunks, rx.det_max, many, step_ms, cell)
+    return counts, checks
 
 
 def cli_check() -> None:
@@ -453,6 +896,20 @@ def cli_check() -> None:
         raise AssertionError(f"cli.ofdm_chain: {out} (expected {want}), "
                              f"launches {counts}")
     print(f"cli.ofdm_chain on the card: {out}, launches {counts}")
+
+
+def kernel_entry(name, cell, launches, c) -> dict:
+    """One entry of the ``kernels`` line: the main path's launch count and
+    what :func:`compare` measured."""
+    src, replaces = SOURCES[name]
+    return {"name": f"{name} [{cell}]", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            **{k: c[k] for k in ("kernel_route", "other_route_ms",
+                                 "err_vs_float64", "err_vs_fft_plain")
+               if k in c}}
 
 
 def main() -> int:
@@ -484,19 +941,13 @@ def main() -> int:
         run = chain_run(cfg, batch, dev, cell)
         print(f"{cell}: {run['msps']:.3f} Msamples/s on {gpu}")
         for name, c in checks.items():
-            src, replaces = SOURCES[name]
-            entries.append({"name": f"{name} [{cell}]", "route": "cuda",
-                            "source": src, "replaces": replaces,
-                            "launches": run["launches"][name],
-                            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                            "plain_ms": c["plain_ms"],
-                            "bound_ms": c["bound_ms"],
-                            "bound_by": c["bound_by"],
-                            "library_ms": c["library_ms"],
-                            **{k: c[k] for k in (
-                                "kernel_route", "other_route_ms",
-                                "err_vs_float64", "err_vs_fft_plain")
-                               if k in c}})
+            entries.append(kernel_entry(name, cell, run["launches"][name], c))
+    for cfg_name, batch, chunk_len, k in SERVING:
+        cfg = getattr(params, cfg_name)
+        cell = f"{cfg_name} serving b{batch}"
+        counts, checks = serving_run(cfg, batch, chunk_len, k, dev, cell, gpu)
+        for name, c in checks.items():
+            entries.append(kernel_entry(name, cell, counts[name], c))
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ import json
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 
 def build_config(args):
     from ..utils.params import OFDMConfig
@@ -28,17 +30,6 @@ def build_config(args):
         num_synch_bins=args.nfft - 2, snr_db=args.snr,
         detection_gate=args.gate, channel=args.channel,
         stride=args.stride).validate()
-
-
-def resolve_device(name: str) -> torch.device:
-    """The torch device ``name``; raises where it is a CUDA device and none
-    is present (no move to the CPU unless the caller asks for it)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is present; "
-                           "pass --device cpu to run the kernels' plain "
-                           "twins on the CPU")
-    return device
 
 
 def build_parser() -> argparse.ArgumentParser:

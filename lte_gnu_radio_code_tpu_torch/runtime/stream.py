@@ -1,0 +1,472 @@
+"""Streaming runtime in torch: a chunked sample stream drives one step
+function with an explicit carry,
+
+    state_{t+1}, out_t = step(state_t, chunk_t)
+
+Port of ``lte_gnu_radio_code_tpu/runtime/stream.py``: the single-lock
+stream (``hist_len_for``, ``StreamState``, ``ChunkOut``, ``init_state``,
+``stream_step``, ``StreamingRx``) and the continuous multi-detection one
+(``reacq_lag``, ``reacq_det_max``, ``ReacqState``, ``ReacqChunkOut``,
+``reacq_init``, ``reacq_step``, ``ReacqStreamingRx``,
+``BatchReacqStreamingRx``), with ``push``, ``push_many``, ``finish`` and
+npz checkpoints whose keys are the JAX receivers', so a checkpoint written
+by either package resumes in the other.  The tracker and legacy CFO/DSSS
+streams are not ported yet.
+
+A step keeps static shapes (fixed [det_max] / [kmax] tables with a
+``valid`` mask), holds its carry in device tensors and never waits for the
+host: no ``.item()``, no boolean-mask indexing, no tensor made from a
+Python number on the way.  That is what lets a step be captured in a CUDA
+graph.  The batch receiver's step carries an explicit leading stream axis:
+one sync search (K4) and one demod (K2) launch a chunk step, however many
+streams there are.
+
+The receivers run on the CUDA device unless the caller passes a ``device``
+(``"cpu"`` runs the kernels' plain versions); where there is no CUDA device
+and none is passed they raise.  On a CUDA device ``fast`` and
+``demod_path`` default to ``"kernel"``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels import equalize, sync_search
+from ..models import stream_rx
+from ..ops import fast_sync, sync
+from ..utils.device import resolve_device
+from ..utils.params import OFDMConfig
+from ..utils.tables import device_table
+
+
+class StreamState(NamedTuple):
+    hist: torch.Tensor          # [hist_len] trailing samples of past chunks
+    base: torch.Tensor          # global sample index of the next chunk
+    locked: torch.Tensor        # bool: the single-lock flag
+    lock_ptr: torch.Tensor      # global lock pointer
+    delay_idx: torch.Tensor
+    chan_full: torch.Tensor     # [nfft] locked channel estimate
+    next_k: torch.Tensor        # next pattern block to demodulate
+    last_det_ptr: torch.Tensor  # refractory reference across chunks
+
+
+class ChunkOut(NamedTuple):
+    phasors: torch.Tensor       # [kmax, nd, num_data_bins]
+    block_ids: torch.Tensor     # [kmax] global pattern-block index, or -1
+    valid: torch.Tensor         # [kmax] bool
+    found: torch.Tensor         # bool: locked as of the end of this chunk
+    lock_ptr: torch.Tensor
+
+
+def hist_len_for(cfg: OFDMConfig) -> int:
+    """The longest reach of a window beyond a trial or block start."""
+    sync_reach = cfg.cp_len + cfg.m_synch * cfg.rx_b_len + cfg.nfft
+    data_reach = cfg.pattern_len * cfg.rx_b_len + cfg.nfft
+    return max(sync_reach, data_reach)
+
+
+def _scalar(value, dtype, device, batch=None) -> torch.Tensor:
+    return torch.full(() if batch is None else (batch,), value, dtype=dtype,
+                      device=device)
+
+
+def init_state(cfg: OFDMConfig, chunk_len: int, device="cpu") -> StreamState:
+    i32 = functools.partial(_scalar, 0, torch.int32, device)
+    return StreamState(
+        hist=torch.zeros(hist_len_for(cfg), dtype=torch.complex64,
+                         device=device),
+        base=i32(), locked=_scalar(False, torch.bool, device),
+        lock_ptr=i32(), delay_idx=i32(),
+        chan_full=torch.zeros(cfg.nfft, dtype=torch.complex64, device=device),
+        next_k=i32(), last_det_ptr=i32())
+
+
+def _stride_aligned(cfg: OFDMConfig, chunk_len: int) -> int:
+    stride = max(1, cfg.stride)
+    if chunk_len % stride:
+        raise ValueError(f"chunk length {chunk_len} is not a multiple of "
+                         f"the sync stride {stride}")
+    return stride
+
+
+def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
+                num_patterns_total: int, fast: str | None = None,
+                demod_path: str | None = None
+                ) -> tuple[StreamState, ChunkOut]:
+    """One chunk of the single-lock stream (``stream.py:stream_step``): the
+    first un-refractory gate crossing locks, and every pattern block that
+    has become readable is demodulated with the lock's channel estimate.
+
+    ``fast`` None / "exact" (the JAX package's form: trial spectra and the
+    dense delay product), "ifft", "conv" or "kernel" (K4); ``demod_path``
+    None (torch.fft), "dft" or "kernel" (K2), as in ``models/stream_rx``."""
+    chunk_len = chunk.shape[0]
+    stride = _stride_aligned(cfg, chunk_len)
+    hist_len = hist_len_for(cfg)
+    dev = chunk.device
+    ext = torch.cat([state.hist, chunk])       # covers [base-hist, base+chunk)
+    ext_start = state.base - hist_len          # global coordinate of ext[0]
+
+    # -- the trials that became fully readable with this chunk --------------
+    t_per = chunk_len // stride
+    fast = fast or "exact"
+    if fast in ("ifft", "exact"):
+        spectra = sync.sync_spectra(cfg, ext, t_per)
+        corr = sync.corr_abs_from_spectra(cfg, spectra, fast)
+    elif fast in ("conv", "kernel"):
+        spectra = None
+        search = (sync_search.sync_corr_abs if fast == "kernel"
+                  else fast_sync.sync_corr_abs_fast)
+        corr = search(cfg, ext, t_per)
+    else:
+        raise ValueError(f"unknown sync path {fast!r}")
+    dmax_val, dmax_ind = corr.max(-1)
+    global_ptrs = ext_start + cfg.cp_len + cfg.stride * torch.arange(
+        t_per, device=dev)
+    # the batch RX evaluates no trial before cp: mask them, so that the
+    # stream locks where it does
+    crossing = (dmax_val > sync.gate_level(cfg)) & (global_ptrs >= cfg.cp_len)
+    ok = crossing & ((global_ptrs - state.last_det_ptr >
+                      2 * cfg.cp_len + cfg.nfft) | (state.last_det_ptr == 0))
+    any_new = ok.any() & ~state.locked
+    first_j = ok.to(torch.int32).argmax()[None]        # first True (0 if none)
+    new_lock_ptr = global_ptrs.gather(0, first_j)[0]
+    new_delay = dmax_ind.gather(0, first_j)[0]
+    if spectra is not None:
+        spec = spectra.index_select(0, first_j)[0]
+    else:
+        spec = sync.sync_spectrum_at(
+            cfg, ext, first_j[0], method="dft" if fast == "kernel" else None)
+    _, new_chan, _ = sync.estimate_channel(cfg, spec, new_delay)
+
+    locked = state.locked | any_new
+    lock_ptr = torch.where(any_new, new_lock_ptr, state.lock_ptr)
+    delay_idx = torch.where(any_new, new_delay, state.delay_idx)
+    chan_full = torch.where(any_new, new_chan, state.chan_full)
+    last_det = torch.where(any_new, new_lock_ptr, state.last_det_ptr)
+
+    # -- data demod: the pattern blocks whose whole window lies in ext ------
+    m0, nd = cfg.m_synch, cfg.synch_dat[1]
+    block = cfg.pattern_len * cfg.rx_b_len
+    kmax = chunk_len // block + 2
+    k0 = torch.where(locked & ~any_new, state.next_k, 0)
+    k = k0 + torch.arange(kmax, device=dev)
+    b_k = lock_ptr + k * block
+    last_need = b_k + (m0 + nd - 1) * cfg.rx_b_len + cfg.nfft
+    readable = (last_need <= state.base + chunk_len) & (b_k >= ext_start)
+    valid = locked & readable & (k < num_patterns_total)
+    rel = torch.where(valid, b_k - ext_start, 0)
+    win = sync.windows_at(ext, rel, device_table(
+        sync.data_window_offsets, dev, cfg, 1))             # [kmax, nd, nfft]
+    coeff = equalize.combined_coeff(cfg, delay_idx, chan_full)
+    phasors = stream_rx.demod_rows(cfg, win, coeff,
+                                   demod_path) * valid[:, None, None]
+    next_k = torch.where(locked, k0 + valid.sum(), 0)
+
+    i32 = torch.int32
+    new_state = StreamState(
+        hist=ext[-hist_len:].clone(), base=state.base + chunk_len,
+        locked=locked, lock_ptr=lock_ptr.to(i32), delay_idx=delay_idx.to(i32),
+        chan_full=chan_full, next_k=next_k.to(i32),
+        last_det_ptr=last_det.to(i32))
+    out = ChunkOut(phasors=phasors,
+                   block_ids=torch.where(valid, k, -1).to(i32), valid=valid,
+                   found=locked, lock_ptr=new_state.lock_ptr)
+    return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# Continuous multi-detection streaming (the receiver the reference's
+# loopback app runs forever)
+# ---------------------------------------------------------------------------
+#
+# Per chunk the receiver searches, accepts every un-refractory gate crossing,
+# refreshes the channel estimate per detection and demodulates each
+# detection's pattern block with its own estimate.  The carry is small:
+#
+#   hist      the trailing `lag` samples, sized so that every trial processed
+#             in a chunk has its whole reach (sync windows and its pattern
+#             block's data symbols) inside ext = [hist, chunk].  Trials are
+#             processed `lag` samples behind the newest input, and every
+#             detection is emitted once, with its demod complete.
+#   last_det_ptr / any_det   the refractory rule's carry, so that detections
+#             are accepted as by one scan over the whole stream.
+#
+# Chunked output == rx_detections on the concatenated stream.
+
+
+def reacq_lag(cfg: OFDMConfig) -> int:
+    """History length: cp + a trial's longest reach (its last data symbol),
+    rounded up to a stride multiple so that chunk trial grids stay aligned."""
+    need = cfg.cp_len + (cfg.pattern_len - 1) * cfg.rx_b_len + cfg.nfft
+    s = max(1, cfg.stride)
+    return -(-need // s) * s
+
+
+def reacq_det_max(cfg: OFDMConfig, chunk_len: int) -> int:
+    """Upper bound on a chunk's detections under the refractory rule."""
+    return chunk_len // (2 * cfg.cp_len + cfg.nfft) + 1
+
+
+class ReacqState(NamedTuple):
+    hist: torch.Tensor          # [..., lag] trailing samples
+    base: torch.Tensor          # [...] global index of the next chunk's start
+    real_end: torch.Tensor      # [...] global count of real (unpadded) samples
+    last_det_ptr: torch.Tensor  # [...]
+    any_det: torch.Tensor       # [...] bool
+
+
+class ReacqChunkOut(NamedTuple):
+    ptrs: torch.Tensor       # [..., det_max] global detection pointers, or -1
+    delays: torch.Tensor     # [..., det_max]
+    peaks: torch.Tensor      # [..., det_max]
+    valid: torch.Tensor      # [..., det_max] bool
+    demod_ok: torch.Tensor   # [..., det_max] bool: data window in real samples
+    chans: torch.Tensor      # [..., det_max, nfft] per-detection channel
+    phasors: torch.Tensor    # [..., det_max, nd, num_data_bins]
+    hard_bits: torch.Tensor  # [..., det_max, nd, num_data_bins*bits_per_bin]
+
+
+def reacq_init(cfg: OFDMConfig, device="cpu",
+               batch: int | None = None) -> ReacqState:
+    """The empty carry of one stream, or of ``batch`` streams with a leading
+    stream axis on every field."""
+    lead = () if batch is None else (batch,)
+    i32 = functools.partial(_scalar, 0, torch.int32, device, batch)
+    return ReacqState(
+        hist=torch.zeros(*lead, reacq_lag(cfg), dtype=torch.complex64,
+                         device=device),
+        base=i32(), real_end=i32(), last_det_ptr=i32(),
+        any_det=_scalar(False, torch.bool, device, batch))
+
+
+def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
+               n_real, det_max: int, fast: str | None = None,
+               demod_path: str | None = None
+               ) -> tuple[ReacqState, ReacqChunkOut]:
+    """One chunk of the continuous multi-detection receiver
+    (``stream.py:reacq_step``), of one stream (chunk [chunk_len]) or of
+    many at once (chunk [B, chunk_len], every state field with a leading
+    B; ``n_real``, the chunk's real samples, is one number for all).
+
+    Processes the chunk_len // stride trials whose pointers fall in
+    [base - lag + cp, base - lag + cp + chunk_len), so that each trial's
+    whole pattern reach is readable in ext = [hist, chunk]; the refractory
+    rule continues across chunks through (last_det_ptr, any_det).  ext is
+    one new contiguous tensor a step (K4 reads its rows by 8-byte copies)
+    and the new history a copy of its tail, not a view that would keep it
+    alive."""
+    chunk_len = chunk.shape[-1]
+    stride = _stride_aligned(cfg, chunk_len)
+    lag = reacq_lag(cfg)
+    dev = chunk.device
+    ext = torch.cat([state.hist, chunk], -1)
+    ext_start = state.base - lag       # global coordinate of ext[..., 0]
+
+    t_per = chunk_len // stride
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
+    local_ptrs = cfg.cp_len + stride * torch.arange(t_per, device=dev)
+    global_ptrs = ext_start[..., None] + local_ptrs
+    # trials before the stream's head (chunk 0's warm-up region) do not exist
+    crossing = (dmax_val > sync.gate_level(cfg)) & (global_ptrs >= cfg.cp_len)
+
+    g_ptrs, (l_ptrs, delays, peaks), count, (last_ptr, any_det) = \
+        sync.refractory_table(
+            cfg, crossing, (local_ptrs, dmax_ind, dmax_val), det_max,
+            ext_start + cfg.cp_len, state.last_det_ptr, state.any_det)
+    valid = torch.arange(det_max, device=dev) < count[..., None]
+
+    real_end = state.real_end + n_real
+    chans, phasors, demod_ok = stream_rx.demod_detections(
+        cfg, ext, l_ptrs, delays, valid, real_end - ext_start,
+        demod_path=demod_path)
+
+    new_state = ReacqState(hist=ext[..., -lag:].clone(),
+                           base=state.base + chunk_len, real_end=real_end,
+                           last_det_ptr=last_ptr, any_det=any_det)
+    out = ReacqChunkOut(ptrs=torch.where(valid, g_ptrs, -1), delays=delays,
+                        peaks=peaks, valid=valid, demod_ok=demod_ok,
+                        chans=chans, phasors=phasors,
+                        hard_bits=stream_rx.hard_decide(cfg, phasors))
+    return new_state, out
+
+
+def _as_chunks(x, device: torch.device) -> torch.Tensor:
+    """Samples (a tensor or anything numpy takes) as complex64 on device."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.complex64))
+    return x.to(device=device, dtype=torch.complex64)
+
+
+def _push_many(rx, chunks):
+    """K chunk steps in one call for any receiver: outputs gain a leading K
+    axis and equal those of K ``push`` calls exactly.  Full chunks only;
+    partial and flush chunks go through ``push`` / ``finish``."""
+    chunks = _as_chunks(chunks, rx.device)
+    if chunks.shape[1:] != rx.chunk_shape:
+        raise ValueError(f"push_many: chunks {tuple(chunks.shape)}, expected "
+                         f"[K, {', '.join(map(str, rx.chunk_shape))}]")
+    outs = [rx.push(c) for c in chunks]
+    return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+
+
+def _kernel_defaults(device: torch.device, fast, demod_path):
+    """On a CUDA device the search and the demod default to the kernels."""
+    if device.type == "cuda":
+        return fast or "kernel", demod_path or "kernel"
+    return fast, demod_path
+
+
+def _save_npz(path, state, complex_fields: dict) -> None:
+    """A carry as npz: complex fields planar under <key>_re / <key>_im."""
+    arrays = {}
+    for field, value in state._asdict().items():
+        a = value.cpu().numpy()
+        if field in complex_fields:
+            key = complex_fields[field]
+            arrays[f"{key}_re"], arrays[f"{key}_im"] = a.real, a.imag
+        else:
+            arrays[field] = a
+    np.savez_compressed(path, **arrays)
+
+
+def _load_npz(path, like, complex_fields: dict):
+    """The carry saved by :func:`_save_npz` (or by the JAX receiver), with
+    the dtypes, shapes and device of the carry ``like``."""
+    fields = {}
+    with np.load(path) as z:
+        for field, ref in like._asdict().items():
+            if field in complex_fields:
+                key = complex_fields[field]
+                a = z[f"{key}_re"] + 1j * z[f"{key}_im"]
+            else:
+                a = z[field]
+            t = torch.as_tensor(np.asarray(a)).to(device=ref.device,
+                                                  dtype=ref.dtype)
+            if t.shape != ref.shape:
+                raise ValueError(f"checkpoint field {field}: shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(ref.shape)}")
+            fields[field] = t
+    return type(like)(**fields)
+
+
+class ReacqStreamingRx:
+    """Host-side front end of the continuous multi-detection receiver:
+    push(chunk) is one call of the reference block's work(), finish()
+    flushes the lag so that trailing detections resolve."""
+
+    batch = None        # BatchReacqStreamingRx: the number of streams
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, fast=None,
+                 demod_path=None, device=None):
+        _stride_aligned(cfg, chunk_len)
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.device = resolve_device(device)
+        self.det_max = reacq_det_max(cfg, chunk_len)
+        fast, demod_path = _kernel_defaults(self.device, fast, demod_path)
+        self.state = reacq_init(cfg, self.device, self.batch)
+        self._step = functools.partial(
+            reacq_step, cfg, det_max=self.det_max, fast=fast,
+            demod_path=demod_path)
+
+    @property
+    def chunk_shape(self) -> tuple:
+        return self.state.hist.shape[:-1] + (self.chunk_len,)
+
+    def push(self, chunk, n_real: int | None = None) -> ReacqChunkOut:
+        chunk = _as_chunks(chunk, self.device)
+        if chunk.shape != self.chunk_shape:
+            raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
+                             f"{tuple(self.chunk_shape)}")
+        self.state, out = self._step(
+            self.state, chunk, self.chunk_len if n_real is None else n_real)
+        return out
+
+    def push_many(self, chunks) -> ReacqChunkOut:
+        """K chunk steps in one call; see :func:`_push_many`."""
+        return _push_many(self, chunks)
+
+    def finish(self) -> list[ReacqChunkOut]:
+        """Flush the lag with zero chunks so that trailing trials resolve."""
+        zeros = torch.zeros(self.chunk_shape, dtype=torch.complex64,
+                            device=self.device)
+        return [self.push(zeros, n_real=0)
+                for _ in range(-(-reacq_lag(self.cfg) // self.chunk_len))]
+
+    # -- checkpoint and resume: the JAX receiver's npz keys ------------------
+    def save_state(self, path) -> None:
+        _save_npz(path, self.state, {"hist": "hist"})
+
+    def load_state(self, path) -> None:
+        self.state = _load_npz(path, self.state, {"hist": "hist"})
+
+
+class BatchReacqStreamingRx(ReacqStreamingRx):
+    """B independent continuous streams on one device (many carriers,
+    antennas or users), each with its own history, refractory pointer and
+    detection table, stepped together: one search launch and one demod
+    launch a step, whatever B is.
+
+    push(chunks)       [B, chunk_len]     -> ReacqChunkOut with a leading B
+    push_many(chunks)  [K, B, chunk_len]  -> leading (K, B)
+
+    ``n_real`` is one number for all streams: sources advance in lockstep
+    and finish() pads every stream with the same zero chunks."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, batch: int,
+                 fast=None, demod_path=None, device=None):
+        self.batch = batch
+        super().__init__(cfg, chunk_len, fast, demod_path, device)
+
+
+class StreamingRx:
+    """Host-side front end of the single-lock stream: one block whose work()
+    is :func:`stream_step`, driven by push(chunk) calls."""
+
+    _COMPLEX = {"hist": "hist", "chan_full": "chan"}
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int,
+                 num_patterns_total: int | None = None, fast=None,
+                 demod_path=None, device=None):
+        _stride_aligned(cfg, chunk_len)
+        if num_patterns_total is None:
+            num_patterns_total = cfg.num_patterns
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.chunk_shape = (chunk_len,)
+        self.device = resolve_device(device)
+        fast, demod_path = _kernel_defaults(self.device, fast, demod_path)
+        self.state = init_state(cfg, chunk_len, self.device)
+        self._step = functools.partial(
+            stream_step, cfg, num_patterns_total=num_patterns_total,
+            fast=fast, demod_path=demod_path)
+
+    def push(self, chunk) -> ChunkOut:
+        chunk = _as_chunks(chunk, self.device)
+        if chunk.shape != self.chunk_shape:
+            raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
+                             f"[{self.chunk_len}]")
+        self.state, out = self._step(self.state, chunk)
+        return out
+
+    def push_many(self, chunks) -> ChunkOut:
+        """K chunk steps in one call; see :func:`_push_many`."""
+        return _push_many(self, chunks)
+
+    def finish(self) -> ChunkOut:
+        """Push zeros so that trailing blocks inside the history resolve."""
+        return self.push(torch.zeros(self.chunk_len, dtype=torch.complex64,
+                                     device=self.device))
+
+    # -- checkpoint and resume: the JAX receiver's ten npz keys --------------
+    def save_state(self, path) -> None:
+        _save_npz(path, self.state, self._COMPLEX)
+
+    def load_state(self, path) -> None:
+        self.state = _load_npz(path, self.state, self._COMPLEX)

@@ -6,7 +6,9 @@ kernel is held to both plain versions at every such nfft, its direct
 kernel at the dense search's sizes and at an nfft that is not a power of
 two, and the wrapper to the route rule.  Imports no JAX, so it also runs
 on a GPU host that has none (``--noconftest`` skips tests/conftest.py,
-which imports jax):
+which imports jax).  The serving path (``runtime/stream.py``) is held at a
+short stream: K4 and K2 at a chunk step's shapes, and the receivers on the
+kernel path against the plain path:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -21,8 +23,10 @@ from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import (_cuda, channel_conv,
                                                   equalize, fft, ofdm_mod,
                                                   sync_search)
-from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm, txofdm
-from lte_gnu_radio_code_tpu_torch.ops import channel
+from lte_gnu_radio_code_tpu_torch.models import (chain, rxofdm, stream_rx,
+                                                 txofdm)
+from lte_gnu_radio_code_tpu_torch.ops import channel, sync
+from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 from lte_gnu_radio_code_tpu_torch.utils.params import (GOLDEN64, LTE1024,
                                                        LTE2048, used_bins)
 
@@ -302,6 +306,119 @@ def test_chain_batch_through_kernels(dev):
     p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
                           plain=True)
     assert torch.equal(r.hard_bits, p.hard_bits)
+
+
+SERVING = pytest.mark.parametrize("cfg,chunk", [
+    (GOLDEN64, 65520), (LTE1024, 65280), (LTE2048, 130816)],
+    ids=["golden64", "lte1024", "lte2048"])
+
+
+def _streams(cfg, dev, batch, n, seed):
+    """batch continuous streams of n samples: frames of seeded bits through
+    the plain TX and one Fading convolution, concatenated."""
+    frames = -(-n // cfg.frame_len)
+    bits = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2, (batch * frames, cfg.num_bits), dtype=np.int32)).to(dev)
+    tx = txofdm.tx_frames(cfg, bits).reshape(batch, -1)
+    return channel.apply_channel(tx, chain.loopback_taps(cfg),
+                                 max_impulse=cfg.nfft)[:, :n].contiguous()
+
+
+@SERVING
+def test_k4_k2_at_the_serving_shapes(dev, cfg, chunk):
+    """One chunk step's kernels at the serving shapes: K4 on ext [4, lag +
+    chunk] against both plain versions, and K2 on the step's own
+    [4*det_max*nd, nfft] windows with one coefficient row per window, most
+    of them empty slots (pointer 0, zero coefficient)."""
+    lag, det_max = rt.reacq_lag(cfg), rt.reacq_det_max(cfg, chunk)
+    ext = _streams(cfg, dev, 4, lag + chunk, seed=21)
+    t_per = chunk // cfg.stride
+    out = sync_search.sync_corr_abs(cfg, ext, t_per)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_plain(cfg, ext, t_per), **K4_TOL)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_fft_plain(cfg, ext, t_per), **K4_TOL)
+    dmax_val, dmax_ind = out.max(-1)
+    ptrs = cfg.cp_len + cfg.stride * torch.arange(t_per, device=dev)
+    _, (l_ptrs, delays), count, _ = sync.refractory_table(
+        cfg, dmax_val > sync.gate_level(cfg), (ptrs, dmax_ind), det_max,
+        cfg.cp_len)
+    valid = torch.arange(det_max, device=dev) < count[:, None]
+    assert 0 < int(count.min()) and int(count.max()) < det_max
+    _, _, dwin, coeff = stream_rx.detection_rows(
+        cfg, ext, l_ptrs, delays, valid, ext.shape[-1], "dft")
+    nd, nb = cfg.synch_dat[1], cfg.num_data_bins
+    win = dwin.reshape(-1, cfg.nfft)
+    rows = coeff[:, :, None, :].expand(4, det_max, nd, nb).reshape(
+        -1, nb).contiguous()
+    k2 = equalize.demod_windows(cfg, win, rows)
+    assert k2.shape == (4 * det_max * nd, nb)
+    torch.testing.assert_close(
+        k2, equalize.demod_windows_plain(cfg, win, rows), atol=2e-4, rtol=0)
+    empty = ~valid[:, :, None].expand(4, det_max, nd).reshape(-1)
+    assert bool(empty.any()) and not bool(k2[empty].any())
+
+
+@pytest.mark.parametrize("cfg,chunk", [(GOLDEN64, 4800), (L8, 255 * 64),
+                                       (M8, 511 * 32)],
+                         ids=["golden64", "lte1024", "lte2048"])
+def test_serving_kernel_path_equals_plain_path(dev, cfg, chunk):
+    """A short stream through the receivers as a user builds them (on the
+    card, kernel paths by default): one K4 and one K2 launch a step
+    whatever the number of streams; pointers, delays, masks and hard bits
+    equal the plain path's ("conv", "dft"), phasors and channel estimates
+    within 2e-4; push_many == pushes; one stream alone == its row."""
+    k, batch = 4, 3
+    chunks = _streams(cfg, dev, batch, k * chunk, seed=22).reshape(
+        batch, k, chunk).transpose(0, 1).contiguous()
+    rx = rt.BatchReacqStreamingRx(cfg, chunk, batch)
+    assert rx.device.type == "cuda"
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    tail = rx.finish()
+    counts = kernels.launch_counts()
+    assert counts["sync_search"] == counts["equalize"] == k + len(tail)
+    assert int(many.valid.sum()) >= batch * (k * chunk // (
+        cfg.pattern_len * cfg.rx_b_len) - 2)
+    plain = rt.BatchReacqStreamingRx(cfg, chunk, batch, fast="conv",
+                                     demod_path="dft").push_many(chunks)
+    assert kernels.launch_counts() == counts
+    for name in ("ptrs", "delays", "valid", "demod_ok", "hard_bits"):
+        assert torch.equal(getattr(many, name), getattr(plain, name)), name
+    torch.testing.assert_close(many.phasors, plain.phasors, atol=2e-4, rtol=0)
+    torch.testing.assert_close(many.chans, plain.chans, atol=2e-4, rtol=0)
+    seq = rt.BatchReacqStreamingRx(cfg, chunk, batch)
+    for i, c in enumerate(chunks):
+        out = seq.push(c)
+        for name in out._fields:
+            assert torch.equal(getattr(out, name), getattr(many, name)[i])
+    one = rt.ReacqStreamingRx(cfg, chunk).push_many(chunks[:, 1])
+    for name in ("ptrs", "delays", "valid", "demod_ok", "hard_bits"):
+        assert torch.equal(getattr(one, name), getattr(many, name)[:, 1])
+    torch.testing.assert_close(one.phasors, many.phasors[:, 1], atol=2e-5,
+                               rtol=0)
+
+
+def test_single_lock_stream_on_the_card(dev):
+    """StreamingRx with no device: locks, and the first frame's blocks come
+    out once, through one K4 and one K2 launch a step."""
+    cfg = GOLDEN64
+    bits, xs = _frames(cfg, dev, 1, seed=23)
+    chunk = 4800
+    buf = torch.zeros(5 * chunk, dtype=torch.complex64, device=dev)
+    buf[:xs.shape[1]] = xs[0]
+    rx = rt.StreamingRx(cfg, chunk)
+    kernels.reset_launch_counts()
+    outs = [rx.push(c) for c in buf.reshape(5, chunk)] + [rx.finish()]
+    assert kernels.launch_counts()["sync_search"] == 6
+    assert kernels.launch_counts()["equalize"] == 6
+    ids = torch.cat([o.block_ids for o in outs])
+    assert sorted(ids[ids >= 0].tolist()) == list(range(cfg.num_patterns))
+    ph = torch.cat([o.phasors for o in outs])[ids >= 0]
+    order = ids[ids >= 0].argsort()
+    hard = stream_rx.hard_decide(cfg, ph[order]).reshape(-1)
+    assert bool(outs[-1].found) and int(outs[-1].lock_ptr) == 16
+    assert torch.equal(hard, bits[0])
 
 
 def test_cli_loopback_runs_on_the_card(dev):
