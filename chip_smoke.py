@@ -24,6 +24,21 @@ one K2 launch a chunk step, no host synchronisation inside a step, a step
 captured and replayed as a CUDA graph, the single-lock ``StreamingRx``,
 and K4 and K2 against their plain versions at the serving shapes.
 
+Then the other receiver generations.  ``qam_run``: the chain again at the
+shipped QAM64 config (GOLDEN64, Fading, batch 128; also at its own 24 dB,
+kernel and plain chains within 1e-4 of the bits), at the shipped QAM16 +
+LTE-like pilot config (spacing 4, Ideal, batch 128) and at LTE1024 + QAM64 +
+pilots every 6 bins (Fading, batch 32), each with its four kernels held to
+their plain versions at its shapes (K2 with the rotation alone where the
+pilots estimate the channel), one launch of each a step.  The serving path
+once more on QAM16 streams.  ``legacy_run``: ``LegacyStreamingRx`` on a
+stream of over a million samples made on the card, CFO case 7 (three
+candidates; +1500 Hz injected, and none) and DSSS case 9, chunk = 2048
+strides: detections against what was sent, chunked == whole buffer, K2
+path == plain path, one K2 launch and no other kernel a step, no host
+synchronisation.  ``split_check``: the split RX == ``rx_frame``.  The CLI
+check also runs ``cli.ber_sweep`` and a pilot config.
+
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
@@ -33,6 +48,7 @@ from __future__ import annotations
 
 import functools
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -42,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+REPO = pathlib.Path(__file__).resolve().parent
 SEED = 0
 CHAIN_REPS = 20
 CHAIN_ROUNDS = 3              # the chain is timed this often; median kept
@@ -51,6 +68,35 @@ CELLS = (("GOLDEN64", 128), ("LTE1024", 32), ("LTE2048", 32))
 # sizes), chunks a push_many
 SERVING = (("LTE1024", 16, 65280, 16), ("GOLDEN64", 16, 65520, 4),
            ("LTE2048", 16, 130816, 8))
+# the same on QAM16 streams: the demap's other branch behind K2.  The last
+# number is the share of hard bits that may differ from the sent bits: in a
+# continuous stream the dense search's first gate crossing lies 15 samples
+# before each block (delay 16), which leaves one sample of the cyclic
+# prefix to a channel of five taps; the leak from the symbol before is
+# nothing to QPSK and flips about 1.5 QAM16 bits in a million (8 of 5.2 M
+# on the CPU, in either package's receiver).
+SERVING_QAM = ("GOLDEN64", dict(modulation="QAM16"), 16, 65520, 4, 1e-5)
+# QAM and pilot chains: config file or (base config, changes), batch, and
+# the mean BER allowed at 100 dB.  QAM64 on GOLDEN64's 60 bins over Fading
+# has a floor without any noise, in both packages: the RX scales each window
+# to unit power on the used bins, the TX each symbol to unit energy, and
+# through a frequency-selective channel the two differ by a factor that
+# depends on the symbol's data; about one data symbol in 15,000 has its
+# outer points pushed over a decision threshold (3 of 256 frames, each with
+# one symbol of 37-49 wrong bits, on the CPU at this seed).
+QAM_CELLS = (
+    ("GOLDEN64 QAM64", "configs/qam64_sweep.json", None, 128, 1e-4),
+    ("GOLDEN64 QAM16 pilots", "configs/tx16qam.json", None, 128, 0.0),
+    ("LTE1024 QAM64 pilots", "LTE1024",
+     dict(modulation="QAM64", pilot_grid="lte", pilot_spacing=6), 32, 0.0),
+)
+# legacy receivers: case table, case, candidates, injected CFO in Hz
+LEGACY = (("CFO_CASES", 7, (0.0, -1500.0, 1500.0), 1500.0),
+          ("CFO_CASES", 7, (0.0, -1500.0, 1500.0), 0.0),
+          ("DSSS_CASES", 9, (0.0,), 0.0))
+LEGACY_SAMPLES = 1 << 20      # at least this many samples a legacy stream
+LEGACY_CHUNK_STRIDES = 2048
+LEGACY_NOISE_DB = 60.0        # noise under the legacy streams' signal
 SERVING_ROUNDS = 3            # a push_many is timed this often; median kept
 PROFILE_TRIES = 4             # a trace that lost device events is retaken
 # the host's calls that each put one kernel or copy on the device
@@ -281,7 +327,8 @@ def route_cross_checks(dev) -> None:
 
 
 def kernel_checks(cfg, batch, dev, cell) -> dict:
-    """Each kernel against its twin on real main-path inputs of one cell."""
+    """Each kernel against its twin on real main-path inputs of one cell
+    (any modulation and pilot grid)."""
     import torch.nn.functional as F
     from lte_gnu_radio_code_tpu_torch.kernels import (channel_conv, equalize,
                                                       ofdm_mod, sync_search)
@@ -325,10 +372,13 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
 
     corr = sync_search.sync_corr_abs(cfg, rxs, n_trials)
     ptr, delay, _, _, first = sync.first_lock(cfg, corr)
-    spec = sync.sync_spectrum_at(cfg, rxs, first, method="dft")
-    _, chan_full, _ = sync.estimate_channel(cfg, spec, delay)
     win = equalize.data_windows(cfg, rxs, ptr, num_patterns)
-    coeff = equalize.combined_coeff(cfg, delay, chan_full)
+    if cfg.pilot_grid == "none":
+        spec = sync.sync_spectrum_at(cfg, rxs, first, method="dft")
+        _, chan_full, _ = sync.estimate_channel(cfg, spec, delay)
+        coeff = equalize.combined_coeff(cfg, delay, chan_full)
+    else:       # the pilot equaliser gives K2 the rotation alone
+        coeff = equalize.derotation(cfg, delay, dev)
     k = win.shape[1]
     win = win.reshape(batch * k, cfg.nfft)
     coeff = coeff[:, None, :].expand(batch, k, -1).reshape(batch * k, -1)
@@ -359,9 +409,11 @@ def print_kernel_rows(cell, out) -> None:
               f"(L2 evicted)")
 
 
-def chain_run(cfg, batch, dev, cell) -> dict:
+def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
     """The main path: chain_batch with every kernel, reps with the bits
-    flipped between reps; then kernel chain vs plain chain on one noise."""
+    flipped between reps; then kernel chain vs plain chain on one noise.
+    Every frame locks, the mean BER stays within max_ber (0: no bit
+    differs), and the kernel chain's bits are the plain chain's."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
@@ -397,11 +449,13 @@ def chain_run(cfg, batch, dev, cell) -> dict:
         raise AssertionError(f"hard bits {tuple(results[0].hard_bits.shape)}")
     if not bool(found.all()):
         raise AssertionError(f"{cell}: {int((~found).sum())} frames unlocked")
-    if float(ber.max()) != 0.0:
-        raise AssertionError(f"{cell}: BER {float(ber.max())} != 0")
-    missing = [k for k in kernels.KERNEL_MODULES if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"{cell}: kernels not launched: {missing}")
+    if float(ber.mean()) > max_ber:
+        raise AssertionError(f"{cell}: mean BER {float(ber.mean())} beyond "
+                             f"{max_ber} ({int((ber > 0).sum())} frames with "
+                             f"errors, the worst {float(ber.max())})")
+    if counts != dict.fromkeys(kernels.KERNEL_MODULES, CHAIN_REPS):
+        raise AssertionError(f"{cell}: launches {counts} over {CHAIN_REPS} "
+                             "steps, expected one of each kernel a step")
     routes = {k: v - routes0[k] for k, v in sync_search.route_launches.items()}
     want = "direct" if cfg.stride == 1 else "fft"
     if routes != {"fft": 0, "direct": 0,
@@ -428,7 +482,9 @@ def chain_run(cfg, batch, dev, cell) -> dict:
           f"ms/step (median of rounds {rounds}; the host alone queued them "
           f"in {host}), {msps:.3f} Msamples/s, all "
           f"{CHAIN_REPS * batch} frames of the last round "
-          f"locked, BER 0; launches {counts}, sync_search by route {routes}; "
+          f"locked, mean BER {float(ber.mean()):.3e} "
+          f"({int((ber > 0).sum())} frames with errors, allowed mean "
+          f"{max_ber}); launches {counts}, sync_search by route {routes}; "
           f"kernel vs plain chain: bits "
           f"equal, lock_ptr equal {same_lock}/{batch}, delay equal "
           f"{same_delay}/{batch}")
@@ -576,11 +632,12 @@ def stream_of(outs, b):
     return type(outs)(*(f[:, b] for f in outs))
 
 
-def check_detections(cfg, outs, bits, n_real, cell) -> int:
+def check_detections(cfg, outs, bits, n_real, cell, max_bit_err=0.0) -> int:
     """outs [steps, B, det_max, ...] of streams whose first n_real samples
     are real: every pattern block that lies whole inside them is detected
     once (no other detection, none twice), with its data demodulated and
-    its hard bits equal to the sent bits.  Returns the detections checked."""
+    its hard bits equal to the sent bits (but for a share of at most
+    max_bit_err of them).  Returns the detections checked."""
     block = cfg.pattern_len * cfg.rx_b_len
     n_whole = (n_real - cfg.cp_len) // block
     valid = outs.valid.cpu().numpy()
@@ -588,7 +645,7 @@ def check_detections(cfg, outs, bits, n_real, cell) -> int:
     ok = outs.demod_ok.cpu().numpy()
     hard = outs.hard_bits.reshape(*outs.valid.shape, -1).cpu().numpy()
     sent = bits.reshape(bits.shape[0], -1, hard.shape[-1]).cpu().numpy()
-    lo, hi, total = 0, 0, 0
+    lo, hi, total, wrong = 0, 0, 0, 0
     for b in range(valid.shape[1]):
         v = valid[:, b].reshape(-1)
         p = ptrs[:, b].reshape(-1)[v]
@@ -605,14 +662,17 @@ def check_detections(cfg, outs, bits, n_real, cell) -> int:
                 or (~o[j < n_whole]).any():
             raise AssertionError(f"{cell}: stream {b}: {o.sum()} blocks "
                                  f"demodulated, expected the first {n_whole}")
-        if not np.array_equal(h[o], sent[b][j[o]]):
-            raise AssertionError(f"{cell}: stream {b}: "
-                                 f"{int((h[o] != sent[b][j[o]]).sum())} hard "
-                                 "bits differ from the sent bits")
+        wrong += int((h[o] != sent[b][j[o]]).sum())
         total += int(o.sum())
+    n_bits = total * hard.shape[-1]
+    if wrong > max_bit_err * n_bits:
+        raise AssertionError(f"{cell}: {wrong} of {n_bits} hard bits differ "
+                             f"from the sent bits (allowed {max_bit_err} of "
+                             "them)")
     print(f"{cell}: every whole pattern block detected once ({n_whole} a "
           f"stream, {total} in all, pointer offsets from the block grid "
-          f"{lo}..{hi}), hard bits == sent bits")
+          f"{lo}..{hi}), {wrong} of {n_bits} hard bits differ from the sent "
+          f"bits (allowed {max_bit_err:g} of them)")
     return total
 
 
@@ -709,10 +769,11 @@ def single_lock_check(cfg, chunks, bits, cell) -> None:
           f"from there out once, bits == sent bits, launches {counts}")
 
 
-def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu) -> tuple:
-    """The serving path at one shape (module docstring).  Returns (launch
-    counts of the main-path run, K4 and K2 against their plain versions at
-    this shape)."""
+def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
+                max_bit_err=0.0) -> tuple:
+    """The serving path at one shape (module docstring); max_bit_err as in
+    :func:`check_detections`.  Returns (launch counts of the main-path run,
+    K4 and K2 against their plain versions at this shape)."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.models import stream_rx
@@ -751,7 +812,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu) -> tuple:
     print(f"{cell}: {batch} streams x {k} chunks of {chunk_len} "
           f"(det_max {rx.det_max}) + {steps - k} flush steps: launches "
           f"{counts}, sync_search by route {routes}")
-    check_detections(cfg, outs, bits, n_real, cell)
+    check_detections(cfg, outs, bits, n_real, cell, max_bit_err)
 
     # -- kernel path against plain path on the same streams -----------------
     prx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch, fast="conv",
@@ -882,6 +943,377 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu) -> tuple:
     return counts, checks
 
 
+def config_of(source, changes):
+    """A cell's configuration: a ``configs/*.json`` file, or a shipped
+    configuration by name with some fields changed."""
+    import dataclasses
+    from lte_gnu_radio_code_tpu_torch.cli import ber_sweep
+    from lte_gnu_radio_code_tpu_torch.utils import params
+    if source.endswith(".json"):
+        return params.OFDMConfig(
+            **ber_sweep.load_config(REPO / source)).validate()
+    return dataclasses.replace(getattr(params, source),
+                               **(changes or {})).validate()
+
+
+def noisy_chain_check(cfg, batch, dev, cell) -> None:
+    """The chain at the config's own SNR, where frames carry bit errors:
+    every frame locks, and on one noise tensor the kernel chain and the
+    plain chain decide at most 1e-4 of the bits otherwise (a phasor next to
+    a decision threshold may fall on either side)."""
+    from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
+
+    rng = np.random.default_rng(SEED + 5)
+    bits = torch.as_tensor(rng.integers(0, 2, (batch, cfg.num_bits),
+                                        dtype=np.int32), device=dev)
+    n_samples = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n_samples)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    noise = torch.complex(
+        torch.randn(batch, n_samples, generator=gen, device=dev),
+        torch.randn(batch, n_samples, generator=gen, device=dev))
+    h = chain.loopback_taps(cfg)
+    rk = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
+    rp = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
+                           plain=True)
+    differ = float((rk.hard_bits != rp.hard_bits).float().mean())
+    ber_k, ber_p = float(rk.ber.mean()), float(rp.ber.mean())
+    if (not bool(rk.found.all()) or not bool(rp.found.all()) or
+            differ > 1e-4 or not 0.0 < ber_k < 0.1):
+        raise AssertionError(f"{cell} at {cfg.snr_db} dB: "
+                             f"{int((~rk.found).sum())} frames unlocked, "
+                             f"BER {ber_k} (kernel) {ber_p} (plain), "
+                             f"{differ} of the bits differ")
+    print(f"{cell} at {cfg.snr_db} dB: all {batch} frames locked, BER "
+          f"{ber_k:.6f} on the kernel chain, {ber_p:.6f} on the plain chain "
+          f"on the same noise; {differ:.2e} of the bits differ (allowed "
+          f"1e-4); lock_ptr equal {int((rk.lock_ptr == rp.lock_ptr).sum())}"
+          f"/{batch}")
+
+
+def qam_run(name, source, changes, batch, max_ber, dev, gpu) -> list:
+    """One QAM / pilot chain cell (module docstring): its kernels against
+    their plain versions at its shapes, then ``chain_run``'s gates and
+    numbers at 100 dB, then the noisy run where the config has its own
+    SNR.  Returns the cell's entries of the ``kernels`` line."""
+    import dataclasses
+    own = config_of(source, changes)
+    cfg = dataclasses.replace(own, snr_db=100.0)
+    cell = f"{name} b{batch}"
+    checks = kernel_checks(cfg, batch, dev, cell)
+    run = chain_run(cfg, batch, dev, cell, max_ber)
+    print(f"{cell}: {run['msps']:.3f} Msamples/s on {gpu}")
+    if own.snr_db != cfg.snr_db:
+        noisy_chain_check(own, batch, dev, cell)
+    return [kernel_entry(k, cell, run["launches"][k], c)
+            for k, c in checks.items()]
+
+
+def make_legacy_stream(cfg, n_samples, dsss, cfo_hz, dev):
+    """One continuous stream of n_samples for the legacy receivers, made on
+    the card: seeded QPSK symbols, each spread over ``dsss`` bins by the
+    ZC spreading code, one data symbol a pattern block, through the port's
+    grid and K1, one Fading convolution over the whole stream (K3), a
+    carrier offset of cfo_hz over the whole stream, and noise
+    LEGACY_NOISE_DB under the signal.  Returns (stream [n_samples], symbols
+    [blocks, num_data_bins / dsss])."""
+    from lte_gnu_radio_code_tpu_torch.kernels import channel_conv, ofdm_mod
+    from lte_gnu_radio_code_tpu_torch.models import chain
+    from lte_gnu_radio_code_tpu_torch.ops import cfo, modulation, ofdm
+    from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
+
+    frames = -(-n_samples // cfg.frame_len)
+    n_sym = cfg.num_data_bins // dsss
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bits = torch.randint(0, 2, (frames, cfg.num_data_symb, 2 * n_sym),
+                         generator=gen, device=dev, dtype=torch.int32)
+    pts = modulation.bits_to_symbols(bits, "QPSK")
+    code = device_table(cfo.dsss_code, dev, dsss)
+    chips = (pts[..., None] * code).reshape(frames, cfg.num_data_symb, -1)
+    rows = ofdm.resource_grid(cfg, chips).reshape(-1, cfg.nfft)
+    tx = ofdm_mod.modulate_rows(cfg, rows.contiguous()).reshape(1, -1)
+    clean = channel_conv.apply_channel_frames(
+        tx, chain.loopback_taps(cfg), cfg.nfft)[0, :n_samples]
+    t = torch.arange(n_samples, device=dev, dtype=torch.float64)
+    mixer = torch.exp(1j * (2 * np.pi * cfo_hz / cfg.fs) * t).to(
+        torch.complex64)
+    sigma = float(torch.sqrt(tx.abs().pow(2).mean() *
+                             10 ** (-LEGACY_NOISE_DB / 10) / 2))
+    noise = torch.complex(
+        torch.randn(n_samples, generator=gen, device=dev),
+        torch.randn(n_samples, generator=gen, device=dev))
+    return ((clean * mixer + sigma * noise).contiguous(),
+            pts.reshape(-1, n_sym))
+
+
+def on_grid(cfg, ptrs):
+    """ptrs (numpy) -> (the nearest pattern block of each, whether the
+    pointer lies within cp + stride of that block's start)."""
+    block = cfg.pattern_len * cfg.rx_b_len
+    j = np.rint((ptrs - cfg.cp_len) / block).astype(np.int64)
+    return j, np.abs(ptrs - cfg.cp_len - j * block) <= cfg.cp_len + cfg.stride
+
+
+def check_legacy_detections(cfg, outs, sent, n_real, want_fo, every_block,
+                            cell) -> int:
+    """outs [steps, det_max, ...] of one legacy stream whose first n_real
+    samples are real.  A detection is on the grid when its pointer lies
+    within cp + stride of a pattern block's start; no block is detected
+    twice.  With ``every_block`` (no carrier offset left after the mixer):
+    there is no other detection, every detection chose the CFO candidate
+    ``want_fo``, every block whose data symbol lies whole inside the real
+    samples is detected and demodulated, and the signs of its despread
+    symbols are the sent symbols'.  Without it (an offset that turns the
+    phase from one synch window to the next: the trial sum loses part of
+    its peak, some blocks stay under the gate, the sequence's ambiguity two
+    symbols early crosses it, and candidates one step apart nearly tie, as
+    in the JAX package): at least half of those blocks, and at least 99 in
+    100 of the detections on the grid on candidate ``want_fo``.  Returns
+    the detections on the grid."""
+    block = cfg.pattern_len * cfg.rx_b_len
+    reach = cfg.m_synch * cfg.rx_b_len + cfg.nfft
+    n_whole = (n_real - cfg.cp_len - reach) // block + 1
+    v = outs.valid.reshape(-1).cpu().numpy()
+    p = outs.ptrs.reshape(-1).cpu().numpy()[v]
+    o = outs.demod_ok.reshape(-1).cpu().numpy()[v]
+    fo = outs.fo_idx.reshape(-1).cpu().numpy()[v]
+    d = outs.despread.reshape(len(v), -1).cpu().numpy()[v]
+    j, on = on_grid(cfg, p)
+    whole = on & (j < n_whole)
+    other = int((fo[on] != want_fo).sum())
+    if len(np.unique(j[on])) != int(on.sum()) or \
+            other > (0 if every_block else int(on.sum()) // 100):
+        raise AssertionError(f"{cell}: {int(on.sum())} detections on the "
+                             f"grid for {len(np.unique(j[on]))} blocks, "
+                             f"{other} of them not on candidate {want_fo}")
+    if every_block:
+        s = sent.cpu().numpy()[j[whole]]
+        wrong = int(((d[whole].real > 0) != (s.real > 0)).sum() +
+                    ((d[whole].imag > 0) != (s.imag > 0)).sum())
+        if (not on.all() or not np.array_equal(np.sort(j[whole]),
+                                               np.arange(n_whole))
+                or not o[whole].all() or wrong):
+            raise AssertionError(
+                f"{cell}: {int((~on).sum())} detections off the grid, "
+                f"{int(whole.sum())} of {n_whole} whole blocks detected, "
+                f"{int((~o[whole]).sum())} not demodulated, {wrong} despread "
+                "symbol signs differ from the sent ones")
+        print(f"{cell}: every whole pattern block detected once ({n_whole}), "
+              f"no other detection, every fo_idx {want_fo}, the signs of "
+              f"all {d[whole].size} despread symbols == the sent symbols'")
+    else:
+        if int(whole.sum()) < n_whole // 2:
+            raise AssertionError(f"{cell}: {int(whole.sum())} of {n_whole} "
+                                 "whole blocks detected, expected at least "
+                                 "half")
+        print(f"{cell}: {int(whole.sum())} of {n_whole} whole pattern blocks "
+              f"detected on the grid, none twice, {int(on.sum()) - other} of "
+              f"{int(on.sum())} detections there on candidate {want_fo} "
+              f"(candidates {np.bincount(fo[on], minlength=1).tolist()}); "
+              f"{int((~on).sum())} detections off the grid (candidates "
+              f"{np.bincount(fo[~on], minlength=1).tolist()})")
+    return int(on.sum())
+
+
+def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
+    """``LegacyStreamingRx`` at one legacy case (module docstring).  Returns
+    (cell name, K2 launches of the main-path run, K2 against its plain
+    version at this shape, or None where not ``timed``)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import legacy_rx
+    from lte_gnu_radio_code_tpu_torch.ops import cfo, sync
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cases = getattr(params, table)
+    cfg = params.config_from_case(cases, case)
+    dsss = cases[case]["dsss"]
+    chunk_len = LEGACY_CHUNK_STRIDES * cfg.stride
+    k = -(-LEGACY_SAMPLES // chunk_len)
+    n_real = k * chunk_len
+    cell = (f"{table[:-6]} case {case} (nfft {cfg.nfft}, synch_dat "
+            f"{cfg.synch_dat}, dsss {dsss}, {len(fo_range)} candidates, "
+            f"{cfo_hz:+.0f} Hz)")
+    stream, sent = make_legacy_stream(cfg, n_real, dsss, cfo_hz, dev)
+    chunks = stream.reshape(k, chunk_len)
+    make = functools.partial(rt.LegacyStreamingRx, cfg, chunk_len,
+                             fo_range=fo_range, dsss=dsss)
+
+    # -- the main path: the receiver as a user builds it, on the card --------
+    make().push(chunks[0])                              # warm-up, discarded
+    rx = make()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    outs = cat_outs([many, stack_outs(rx.finish())])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = outs.valid.shape[0]
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                  "equalize": steps}:
+        raise AssertionError(f"{cell}: {steps} chunk steps, launches "
+                             f"{counts}, expected one K2 launch a step and "
+                             "no other kernel")
+    if outs.phasors.shape != (steps, rx.det_max, cfg.num_data_bins) or \
+            not bool(torch.isfinite(outs.phasors.abs()).all()):
+        raise AssertionError(f"{cell}: phasors {tuple(outs.phasors.shape)}")
+    print(f"{cell}: {k} chunks of {chunk_len} ({n_real} samples, det_max "
+          f"{rx.det_max}) + {steps - k} flush steps: launches {counts}")
+    want_fo = fo_range.index(-cfo_hz) if cfo_hz else 0
+    check_legacy_detections(cfg, outs, sent, n_real, want_fo,
+                            every_block=not cfo_hz, cell=cell)
+
+    # -- K2 path against plain path, and push_many against pushes ------------
+    prx = make(demod_path="dft")
+    before = kernels.launch_counts()
+    plain = cat_outs([prx.push_many(chunks), stack_outs(prx.finish())])
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{cell}: the plain path launched a kernel")
+    worst = same_outs(outs, plain, f"{cell}: K2 path vs plain path",
+                      float_atol=2e-4)
+    srx = make()
+    same_outs(stack_outs([srx.push(c) for c in chunks]), many,
+              f"{cell}: pushes vs push_many")
+
+    # -- chunk by chunk == the whole buffer -----------------------------------
+    block = cfg.pattern_len * cfg.rx_b_len
+    whole = legacy_rx.make_legacy_rx(cfg, n_real, fo_range=fo_range,
+                                     dsss=dsss, max_det=2 * (n_real // block))(
+        stream)
+    nb = int(whole.count)
+    v = outs.valid.reshape(-1)
+    keep = v & (outs.ptrs.reshape(-1) <= whole.ptrs[:nb].max())
+    pick = keep.nonzero()[:, 0]
+    on = torch.as_tensor(on_grid(cfg, whole.ptrs[:nb].cpu().numpy())[1],
+                         device=dev)
+    worst_whole = 0.0
+    for name, wname in (("ptrs", "ptrs"), ("delays", "delays"),
+                        ("fo_idx", "fo_idx"), ("chans", "chan_freq"),
+                        ("phasors", "phasors"), ("despread", "despread")):
+        x = getattr(outs, name).reshape(len(v), -1)[pick]
+        y = getattr(whole, wname)[:nb].reshape(nb, -1)
+        what = f"{cell}: chunk by chunk vs rx_frame_cfo on the whole buffer"
+        if x.shape != y.shape:
+            raise AssertionError(f"{what}: {name} {tuple(x.shape)} vs "
+                                 f"{tuple(y.shape)}")
+        if not x.dtype.is_complex:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {name} differs in "
+                                     f"{int((x != y).sum())} places")
+            continue
+        if name != "chans":
+            # a detection off the grid has a channel estimate of noise, and
+            # 1 / H at snr 1e8 turns a last-bit difference into any size
+            x, y = x[on], y[on]
+        err = float(((x - y).abs() / y.abs().clamp_min(1.0)).max())
+        worst_whole = max(worst_whole, err)
+        if err > 2e-4:
+            raise AssertionError(
+                f"{what}: {name} differ by {err:.3e} of max(1, |value|) "
+                f"(largest |value| {float(y.abs().max()):.3e}, largest "
+                f"difference {float((x - y).abs().max()):.3e})")
+    print(f"{cell}: K2 path == plain path (dft): tables and masks equal, "
+          f"floats within {worst:.2e} (allowed 2e-4); push_many == {k} "
+          f"pushes exactly; chunk by chunk == rx_frame_cfo on the whole "
+          f"buffer ({nb} detections: pointers, delays and candidates equal, "
+          f"channels of all and phasors and despread symbols of the "
+          f"{int(on.sum())} on the grid within {worst_whole:.2e} of "
+          f"max(1, |value|), allowed 2e-4)")
+
+    # -- no step waits for the host -------------------------------------------
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srx.push(chunks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{cell}: a chunk step ran with torch's sync debug mode set to "
+          "\"error\": nothing in it waits for the host")
+    if not timed:
+        return cell, counts["equalize"], None
+
+    # -- timing, profile, and K2 alone at this shape --------------------------
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        trx = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trx.push_many(chunks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = sorted(times)[len(times) // 2]
+    step_ms = dt * 1e3 / k
+    rounds = ", ".join(f"{t * 1e3 / k:.3f}" for t in times)
+    print(f"{cell}: push_many of {k} chunks: {n_real / dt / 1e6:.3f} "
+          f"Msamples/s, {step_ms:.3f} ms a chunk step (median of rounds "
+          f"{rounds}) on {gpu}")
+    prof_rx = make()
+    busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell)
+    print(f"{cell}: device busy {busy:.3f} of {step_ms:.3f} ms a chunk step: "
+          f"idle share {1 - busy / step_ms:.3f}; {launches:.1f} device "
+          f"launches a step on {gpu}")
+
+    lag = rt.legacy_lag(cfg)
+    ext = stream[chunk_len - lag:2 * chunk_len].contiguous()
+    bank = cfo.bank_on(cfg, fo_range, dev)
+    t_per = chunk_len // cfg.stride
+    dmax_val, delay_win, fo_win = cfo.cfo_search_scan(cfg, ext, t_per, bank)
+    ptrs, (delays, fo_sel), count = sync.refractory_detect(
+        cfg, dmax_val, (delay_win, fo_win), rx.det_max)
+    valid = torch.arange(rx.det_max, device=dev) < count
+    spec = cfo.spectra_at_detections(cfg, ext, torch.where(valid, ptrs, 0),
+                                     fo_sel, bank)
+    _, chans, _ = sync.estimate_channel(cfg, spec, delays.to(torch.int64))
+    start = torch.where(valid, ptrs + cfg.m_synch * cfg.rx_b_len, 0)
+    win = (sync.windows_at(ext, start, torch.arange(cfg.nfft, device=dev)) *
+           cfo.bank_select(bank, fo_sel)).contiguous()
+    from lte_gnu_radio_code_tpu_torch.kernels import equalize
+    coeff = (equalize.combined_coeff(cfg, delays, chans * valid[:, None]) *
+             valid[:, None]).contiguous()
+    check = equalize_check(cfg, win, coeff)
+    print_kernel_rows(cell, {"equalize": check})
+    return cell, counts["equalize"], check
+
+
+def split_check(dev) -> None:
+    """The split RX on the card by default: stage A (K4) and stage B (K2)
+    on one GOLDEN64 frame give the monolithic rx_frame's lock, delay and
+    bits exactly, with one launch of each kernel."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import (chain, rxofdm, split,
+                                                     txofdm)
+    from lte_gnu_radio_code_tpu_torch.ops import channel
+    from lte_gnu_radio_code_tpu_torch.utils.params import GOLDEN64 as cfg
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bits = torch.randint(0, 2, (1, cfg.num_bits), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tx = txofdm.tx_frames(cfg, bits, path="kernel")
+    x = channel.apply_channel(tx, chain.loopback_taps(cfg), cfg.nfft)[0]
+    find, demod = split.make_split_rx(cfg, len(x))
+    kernels.reset_launch_counts()
+    a = find(x)
+    b = demod(a.passthrough, a.ptrs[0], a.delays[0])
+    counts = kernels.launch_counts()
+    mono = rxofdm.make_rx(cfg, len(x), fast="kernel", eq="kernel")(x)
+    if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                   "sync_search": 1, "equalize": 1} or
+            int(a.count) != cfg.num_patterns or
+            int(a.ptrs[0]) != int(mono.lock_ptr) or
+            int(a.delays[0]) != int(mono.delay_idx) or
+            not torch.equal(b.hard_bits, mono.hard_bits) or
+            not torch.equal(b.hard_bits, bits[0])):
+        raise AssertionError(
+            f"split RX: launches {counts}, {int(a.count)} detections, lock "
+            f"{int(a.ptrs[0])}/{int(mono.lock_ptr)}, delay "
+            f"{int(a.delays[0])}/{int(mono.delay_idx)}, "
+            f"{int((b.hard_bits != mono.hard_bits).sum())} bits differ from "
+            "rx_frame's")
+    print(f"split RX on the card: find_synch_index + channel_estimate_demod "
+          f"== rx_frame: lock {int(a.ptrs[0])}, delay {int(a.delays[0])}, "
+          f"{int(a.count)} detections, bits equal and == the sent bits; "
+          f"launches {counts}")
+
+
 def cli_check() -> None:
     """The loopback entry point as a user calls it, with no --device: one
     GOLDEN64 frame through the four kernels on the card."""
@@ -896,6 +1328,24 @@ def cli_check() -> None:
         raise AssertionError(f"cli.ofdm_chain: {out} (expected {want}), "
                              f"launches {counts}")
     print(f"cli.ofdm_chain on the card: {out}, launches {counts}")
+
+    from lte_gnu_radio_code_tpu_torch.cli import ber_sweep
+    kernels.reset_launch_counts()
+    out = ofdm_chain.main(["--json", "--config",
+                           str(REPO / "configs/tx16qam.json")])
+    rows = ber_sweep.main(["--json", "--config",
+                           str(REPO / "configs/qam64_sweep.json"),
+                           "--snrs", "12", "100", "--frames", "4"])
+    counts = kernels.launch_counts()
+    want = {"found": True, "lock_ptr": 16, "delay_idx": 0, "ber": 0.0}
+    if (out != want or counts != dict.fromkeys(kernels.KERNEL_MODULES, 3) or
+            not 0.01 < rows[0]["ber"] < 0.3 or rows[1]["ber"] != 0.0):
+        raise AssertionError(f"cli.ofdm_chain on tx16qam.json: {out} "
+                             f"(expected {want}); cli.ber_sweep: {rows}; "
+                             f"launches {counts}")
+    print(f"cli.ofdm_chain --config configs/tx16qam.json on the card: {out}; "
+          f"cli.ber_sweep --config configs/qam64_sweep.json: {rows}; "
+          f"launches {counts}")
 
 
 def kernel_entry(name, cell, launches, c) -> dict:
@@ -948,6 +1398,21 @@ def main() -> int:
         counts, checks = serving_run(cfg, batch, chunk_len, k, dev, cell, gpu)
         for name, c in checks.items():
             entries.append(kernel_entry(name, cell, counts[name], c))
+    for name, source, changes, batch, max_ber in QAM_CELLS:
+        entries += qam_run(name, source, changes, batch, max_ber, dev, gpu)
+    cfg_name, changes, batch, chunk_len, k, max_bit_err = SERVING_QAM
+    cell = f"{cfg_name} {changes['modulation']} serving b{batch}"
+    counts, checks = serving_run(config_of(cfg_name, changes), batch,
+                                 chunk_len, k, dev, cell, gpu, max_bit_err)
+    for name, c in checks.items():
+        entries.append(kernel_entry(name, cell, counts[name], c))
+    for i, (table, case, fo_range, cfo_hz) in enumerate(LEGACY):
+        timed = (table, case) not in [c[:2] for c in LEGACY[:i]]
+        cell, launches, check = legacy_run(table, case, fo_range, cfo_hz,
+                                           dev, gpu, timed)
+        if check is not None:
+            entries.append(kernel_entry("equalize", cell, launches, check))
+    split_check(dev)
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {

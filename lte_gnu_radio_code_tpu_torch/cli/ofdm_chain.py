@@ -1,6 +1,7 @@
 """The loopback app in torch: bits -> TX -> channel -> AWGN -> RX -> bits
 through the port's main path (``models.chain.chain_batch``: the four kernels
-on a CUDA device, their plain twins on the CPU).
+on a CUDA device, their plain twins on the CPU), for any modulation and
+pilot grid.
 
 Port of ``lte_gnu_radio_code_tpu/cli/ofdm_chain.py``, loopback mode only
 (the pickle and streaming modes are not ported yet).  It runs on the CUDA
@@ -9,6 +10,7 @@ instead of moving to the CPU on its own::
 
     python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain
     python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain --device cpu
+    python -m lte_gnu_radio_code_tpu_torch.cli.ofdm_chain --config configs/tx16qam.json
 """
 
 from __future__ import annotations
@@ -24,12 +26,18 @@ from ..utils.device import resolve_device
 
 def build_config(args):
     from ..utils.params import OFDMConfig
-    return OFDMConfig(
+    from .ber_sweep import load_config
+    kw = dict(
         nfft=args.nfft, cp_len=args.cp_len, num_ofdm_symb=args.num_ofdm_symb,
         synch_dat=tuple(args.synch_dat), num_data_bins=args.num_data_bins,
         num_synch_bins=args.nfft - 2, snr_db=args.snr,
         detection_gate=args.gate, channel=args.channel,
-        stride=args.stride).validate()
+        modulation=args.modulation, pilot_grid=args.pilot_grid,
+        pilot_spacing=args.pilot_spacing, ref_sigs=args.ref_sigs,
+        stride=args.stride)
+    if args.config:
+        kw.update(load_config(args.config))
+    return OFDMConfig(**kw).validate()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sync trial stride (1 dense; cp_len-1 at LTE scale)")
     p.add_argument("--channel", default="Fading",
                    choices=["Ideal", "IMT1", "IMT16", "Fading", "AWGN"])
+    p.add_argument("--modulation", default="QPSK",
+                   choices=["BPSK", "QPSK", "QAM16", "QAM64"])
+    p.add_argument("--pilot-grid", default="none",
+                   choices=["none", "lte", "random"],
+                   help="scattered-pilot grid + pilot channel estimate "
+                        "(ops/pilots)")
+    p.add_argument("--pilot-spacing", type=int, default=4)
+    p.add_argument("--ref-sigs", type=float, default=0.0,
+                   help="pilot bin fraction for --pilot-grid random")
+    p.add_argument("--config", help="JSON config file (configs/*.json); its "
+                                    "fields override the flags above")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true", help="machine-readable out")
     return p

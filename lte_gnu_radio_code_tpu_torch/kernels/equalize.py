@@ -3,7 +3,12 @@ power normalisation, and the combined timing-derotation x MMSE coefficient.
 
 Port of ``lte_gnu_radio_code_tpu/pallas_kernels/equalize.py``
 (``demod_windows``, plus the plain-torch glue ``data_windows``,
-``combined_coeff`` and ``equalize_data_symbols``).  On a CPU tensor
+``combined_coeff`` and ``equalize_data_symbols``).  The coefficient is any
+per-bin complex factor: the single-lock RX passes derotation x MMSE gain,
+the multi-detection and legacy receivers one row per window with their
+masks folded in, and the pilot equaliser (``ops/pilots.py``) the rotation
+alone, taking the power-normalised, derotated used-bin spectra back to
+estimate the channel from them.  On a CPU tensor
 :func:`demod_windows` runs the plain twin :func:`demod_windows_plain` (the
 DFT on the data bins as a product with the ``[nfft, B]`` basis).  On a CUDA
 tensor it launches the shared-memory FFT kernel ``equalize_fft``
@@ -91,22 +96,46 @@ def data_windows(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
         sync_ops.data_window_offsets, x.device, cfg, num_patterns))
 
 
+def derotation(cfg: OFDMConfig, delay_idx, device) -> torch.Tensor:
+    """[..., B] timing derotation e^{+j 2 pi d b_k / N} of each lock's delay
+    d on the data bins."""
+    bins = device_table(sync_ops._bins, device, cfg.nfft, cfg.num_data_bins)
+    delay = torch.as_tensor(delay_idx, device=device)
+    return torch.exp((1j * 2.0 * np.pi / cfg.nfft) *
+                     delay.to(torch.float32)[..., None] *
+                     bins.to(torch.float32))
+
+
 def combined_coeff(cfg: OFDMConfig, delay_idx,
                    chan_full: torch.Tensor) -> torch.Tensor:
     """[..., B] per-bin derotation x MMSE coefficient of each frame's lock."""
     bins = device_table(sync_ops._bins, chan_full.device, cfg.nfft,
                         cfg.num_data_bins)
-    delay = torch.as_tensor(delay_idx, device=chan_full.device)
-    rot = torch.exp((1j * 2.0 * np.pi / cfg.nfft) *
-                    delay.to(torch.float32)[..., None] *
-                    bins.to(torch.float32))
-    return rot * sync_ops.mmse_gain(chan_full[..., bins], cfg.snr_linear)
+    return derotation(cfg, delay_idx, chan_full.device) * sync_ops.mmse_gain(
+        chan_full[..., bins], cfg.snr_linear)
+
+
+def demod_frames(cfg: OFDMConfig, win: torch.Tensor, coeff: torch.Tensor,
+                 demod=None) -> torch.Tensor:
+    """win [..., K, nfft] windows of each frame and coeff [..., B], one
+    coefficient row a frame -> [..., K, B], as one call of ``demod``
+    (:func:`demod_windows` unless given) over the flattened windows.  K2
+    takes contiguous rows, and with one frame the expanded coefficients
+    would stay a strided view, hence the copy."""
+    demod = demod or demod_windows
+    if coeff.ndim == 1:
+        return demod(cfg, win, coeff.contiguous())
+    nb = coeff.shape[-1]
+    rows = coeff[..., None, :].expand(*win.shape[:-1], nb)
+    return demod(cfg, win.reshape(-1, cfg.nfft),
+                 rows.reshape(-1, nb).contiguous()).reshape(
+                     *win.shape[:-1], nb)
 
 
 def equalize_data_symbols(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
                           delay_idx, chan_full: torch.Tensor,
                           num_patterns: int) -> torch.Tensor:
-    """Drop-in for ops.sync.equalize_data_symbols of one frame through K2."""
+    """Drop-in for ops.sync.equalize_data_symbols through K2: x [..., n],
+    one lock per frame, one launch for every frame."""
     win = data_windows(cfg, x, lock_ptr, num_patterns)
-    coeff = combined_coeff(cfg, delay_idx, chan_full)
-    return demod_windows(cfg, win, coeff.contiguous())
+    return demod_frames(cfg, win, combined_coeff(cfg, delay_idx, chan_full))

@@ -2,13 +2,15 @@
 AWGN -> RX -> bits.
 
 Port of ``lte_gnu_radio_code_tpu/models/chain.py`` (``chain_step``,
-``make_chain``) and of the whole-batch step ``chain_batch`` that the JAX
-package's ``bench.py`` times, moved here so the port owns its main path.
-Noise comes from an explicit ``torch.Generator`` or a given noise tensor.
+``make_chain``, ``ber_sweep``) and of the whole-batch step ``chain_batch``
+that the JAX package's ``bench.py`` times, moved here so the port owns its
+main path.  Every modulation and pilot grid runs through both.  Noise comes
+from an explicit ``torch.Generator`` or a given noise tensor.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -17,6 +19,7 @@ import torch
 
 from ..kernels import channel_conv
 from ..ops import channel as chan_ops
+from ..utils.device import resolve_device
 from ..utils.params import OFDMConfig
 from . import rxofdm, txofdm
 
@@ -91,8 +94,8 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
     TX runs as one K1 launch over every symbol of the batch, the channel
     as one K3 launch (any CIR of <= 16 taps), AWGN per frame with a
     per-frame signal power, and RX through ``rxofdm.rx_frames_batch`` (K4
-    and K2).  ``plain`` swaps every kernel for its plain twin, with TX
-    through torch.fft."""
+    and K2), for any modulation and pilot grid.  ``plain`` swaps every
+    kernel for its plain twin, with TX through torch.fft."""
     tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
     if plain or len(h) > channel_conv.MAX_TAPS:
         clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
@@ -105,3 +108,26 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
                                plain=plain)
     return BatchChainResult(_ber(r.hard_bits, bits), r.found, r.hard_bits,
                             r.lock_ptr, r.delay_idx)
+
+
+def ber_sweep(cfg: OFDMConfig, snr_dbs, seeds=range(4), device=None
+              ) -> dict[float, float]:
+    """BER against SNR (``chain.py:ber_sweep``): {snr_db: mean BER over the
+    seeds}.  Each seed is one frame of numpy-seeded bits through
+    :func:`chain_batch` with a ``torch.Generator`` seeded alike: K1-K4 on
+    the CUDA device, which is where it runs unless ``device`` says "cpu"."""
+    device = resolve_device(device)
+    out = {}
+    for snr in snr_dbs:
+        c = dataclasses.replace(cfg, snr_db=float(snr)).validate()
+        n_trials, num_patterns = rxofdm.plan_rx(c, c.frame_len + c.nfft - 1)
+        h = loopback_taps(c)
+        bers = []
+        for s in seeds:
+            bits = torch.as_tensor(np.random.default_rng(s).integers(
+                0, 2, (1, c.num_bits), dtype=np.int32), device=device)
+            gen = torch.Generator(device=device).manual_seed(s)
+            bers.append(chain_batch(c, h, n_trials, num_patterns, bits,
+                                    generator=gen).ber[0])
+        out[float(snr)] = float(torch.stack(bers).mean())
+    return out

@@ -14,7 +14,9 @@ mask: nothing is compacted on the device and nothing waits for the host.
 The sync search is one call over all streams (K4 with ``fast="kernel"``)
 and the per-detection demod one call over the flattened
 [streams*max_det*nd, nfft] windows with one coefficient row per window (K2
-with ``demod_path="kernel"``).  QPSK only.
+with ``demod_path="kernel"``).  Hard bits are the reference's per-rail
+decision for QPSK and the max-log decision, on phasors with the MMSE
+amplitude bias taken out, for any other modulation.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import equalize, sync_search
-from ..ops import fast_sync, sync
+from ..ops import fast_sync, modulation, sync
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
 
@@ -46,17 +48,20 @@ _HALF_SQRT2 = 0.7071067811865476
 
 
 def hard_decide(cfg: OFDMConfig, phasors: torch.Tensor) -> torch.Tensor:
-    """Reference hard bits per rail, shape-preserving and sigma-free
-    (``stream_rx.py:hard_decide``): [..., B] phasors -> [..., 2B] int32,
-    even index the real rail, odd the imaginary.  The LLR demap's sign test
+    """Hard bits, shape-preserving and sigma-free
+    (``stream_rx.py:hard_decide``): [..., B] phasors -> [...,
+    B*bits_per_bin] int32.  Any modulation but QPSK: the max-log decision
+    (``modulation.maxlog_llr`` at noise variance 1.0, which scales the LLRs
+    and moves no sign).  QPSK: the reference's bits per rail, even index
+    the real rail, odd the imaginary.  The LLR demap's sign test
     reduces to comparing er = ||comp| - K| with K = sqrt(2)/2, the rail
     amplitude (the noise scale cancels), so the bits do not depend on the
     batch they were demapped in.  Keeps the reference's quirk: a component
     that overshoots its point by more than K (|comp| > sqrt(2)) flips the
     bit.  Both comparisons are float32 ones, as in the JAX package."""
     if cfg.modulation != "QPSK":
-        raise NotImplementedError(
-            f"{cfg.modulation} demapping is not ported yet (QPSK only)")
+        hard, _ = modulation.maxlog_llr(phasors, cfg.modulation, 1.0)
+        return hard.reshape(*phasors.shape[:-1], -1)
 
     def rail(comp):
         er = (comp.abs() - _HALF_SQRT2).abs()
@@ -159,13 +164,15 @@ def demod_detections(cfg: OFDMConfig, ext: torch.Tensor,
 
     Returns (chans [..., max_det, nfft], phasors [..., max_det, nd, B],
     demod_ok [..., max_det])."""
-    if cfg.modulation != "QPSK":
-        raise NotImplementedError(
-            f"{cfg.modulation} demapping is not ported yet (QPSK only)")
     chans, demod_ok, dwin, coeff = detection_rows(
         cfg, ext, ptrs_rel, delays, valid, n_readable,
         method=None if demod_path is None else "dft")
     phasors = demod_rows(cfg, dwin, coeff[..., None, :], demod_path)
+    if cfg.modulation != "QPSK":
+        # the MMSE amplitude bias goes before a QAM grid decision
+        bins = sync._bins_on(ext.device, cfg.nfft, cfg.num_data_bins)
+        phasors = phasors * sync.demap_unbias_gain(
+            chans[..., bins], cfg.snr_linear)[..., None, :]
     return chans, phasors, demod_ok
 
 

@@ -2,12 +2,14 @@
 normalisation -> time frame.
 
 Port of ``lte_gnu_radio_code_tpu/models/txofdm.py`` (``tx_frame``,
-``tx_frames``, ``tx_frames_fused``).  ``path`` selects the modulator:
+``tx_frames``, ``tx_frames_fused``, ``make_tx``), for every modulation and
+pilot grid.  ``path`` selects the modulator:
 
 * ``None``    -> ``ops.ofdm.modulate`` (torch.fft), per frame;
 * ``"kernel"`` -> K1 (``kernels.ofdm_mod.modulate_rows``) over the whole
   batch's symbols as one row axis (rows normalise independently);
-* ``"fused"``  -> :func:`tx_frames_fused`, grid-free through K1.
+* ``"fused"``  -> :func:`tx_frames_fused`, grid-free through K1 (with a
+  pilot grid it gives way to the ``"kernel"`` grid path).
 """
 
 from __future__ import annotations
@@ -75,9 +77,11 @@ def _synch_time_rows(cfg: OFDMConfig) -> np.ndarray:
 def tx_frames_fused(cfg: OFDMConfig, bits: torch.Tensor) -> torch.Tensor:
     """Grid-free batched TX: data values go straight through K1 with the
     bins-restricted IDFT, and the synch symbols are constant rows
-    (``txofdm.tx_frames_fused``).  bits [B, num_bits] -> [B, frame_len]."""
+    (``txofdm.tx_frames_fused``).  bits [B, num_bits] -> [B, frame_len].
+    With a pilot grid the data symbols carry pilots too, so the grid path
+    through K1 takes over, as in the JAX package."""
     if cfg.pilot_grid != "none":
-        raise NotImplementedError("pilot grids are not ported yet")
+        return tx_frames(cfg, bits, path="kernel")
     b = bits.shape[0]
     _, data_bins = used_bins(cfg.nfft, cfg.num_data_bins)
     pts = modulation.bits_to_symbols(bits, cfg.modulation).reshape(
@@ -87,3 +91,8 @@ def tx_frames_fused(cfg: OFDMConfig, bits: torch.Tensor) -> torch.Tensor:
     s = device_table(_synch_time_rows, bits.device, cfg)
     s = s.expand(b, cfg.num_patterns, cfg.m_synch, cfg.rx_b_len)
     return torch.cat([s, d], 2).reshape(b, cfg.frame_len)
+
+
+def make_tx(cfg: OFDMConfig, path: str | None = None):
+    """tx_frame bound to the config and path (``txofdm.make_tx``)."""
+    return functools.partial(tx_frame, cfg, path=path)

@@ -78,12 +78,12 @@ def _box_sums(x: torch.Tensor, nfft: int, stride: int):
 
 def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor,
                        n_trials: int) -> torch.Tensor:
-    """|corr| [B, n_trials, cp+1] for x [B, n] ([n_trials, cp+1] for x [n])
+    """|corr| [..., n_trials, cp+1] for x [..., n]
     (``fast_sync.sync_corr_abs_fast``)."""
     if cfg.num_synch_bins != cfg.nfft - 2:
         raise ValueError("Parseval normalisation requires the canonical "
                          "all-but-DC/Nyquist synch bins")
-    squeeze = x.ndim == 1
+    lead = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
     _cuda.require_fp32(x.device)
     w = device_table(_conv_weights, x.device, cfg)
@@ -102,7 +102,7 @@ def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor,
         s_pow = s_pow + (cfg.nfft * e - dc2 - ny2)[:, :n_trials]
     scale = torch.sqrt(L / torch.clamp(s_pow, min=1e-30))
     out = corr.abs() * scale[..., None]
-    return out[0] if squeeze else out
+    return out.reshape(*lead, *out.shape[1:])
 
 
 @functools.lru_cache(maxsize=32)
@@ -118,20 +118,19 @@ def _zc_by_bin(cfg: OFDMConfig) -> np.ndarray:
 
 def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor,
                       n_trials: int) -> torch.Tensor:
-    """|corr| [B, n_trials, cp+1] for x [B, n] ([n_trials, cp+1] for x [n])
-    in the FFT form: per trial, |N ifft(sum_l fft(window_l) conj(ZC_l))[d]|
-    * sqrt(L / max(sum_l sum_k |fft(window_l)[b_k]|^2, 1e-30)), d <= cp.
+    """|corr| [..., n_trials, cp+1] for x [..., n] in the FFT form: per
+    trial, |N ifft(sum_l fft(window_l) conj(ZC_l))[d]| * sqrt(L /
+    max(sum_l sum_k |fft(window_l)[b_k]|^2, 1e-30)), d <= cp.
     Samples past the buffer read as zeros.  Computes in x's precision
     (complex64, or complex128 for a float64 evaluation)."""
     if cfg.cp_len >= cfg.nfft:
         raise ValueError("the FFT form reads delays 0..cp from one "
                          "length-nfft inverse: it needs cp < nfft")
-    squeeze = x.ndim == 1
+    lead = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
     nfft, cp, s, m0 = cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch
     if not n_trials:
-        out = x.real.new_zeros(x.shape[0], 0, cp + 1)
-        return out[0] if squeeze else out
+        return x.real.new_zeros(*lead, 0, cp + 1)
     need = cp + (n_trials - 1) * s + (m0 - 1) * cfg.rx_b_len + nfft
     if need > x.shape[1]:
         x = F.pad(x, (0, need - x.shape[1]))
@@ -146,4 +145,4 @@ def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor,
     corr = nfft * torch.fft.ifft(y, dim=-1)[..., : cp + 1]
     L = m0 * cfg.num_synch_bins
     out = corr.abs() * torch.sqrt(L / power.clamp_min(1e-30))[..., None]
-    return out[0] if squeeze else out
+    return out.reshape(*lead, *out.shape[1:])

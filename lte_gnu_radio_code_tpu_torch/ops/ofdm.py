@@ -2,8 +2,9 @@
 prefix + the reference's two-stage per-symbol power normalisation.
 
 Port of ``lte_gnu_radio_code_tpu/ops/ofdm.py`` (``resource_grid`` in its
-pilot-free concat form, ``cp_and_normalise``, ``modulate``).  Every function
-takes leading batch dimensions.
+concat form, with or without scattered pilots, ``cp_and_normalise``,
+``modulate``, ``symbol_fft``).  Every function takes leading batch
+dimensions.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.params import OFDMConfig
+from ..utils.params import OFDMConfig, pilot_bin_plan, used_bins
 from ..utils.tables import device_table
+from .pilots import pilot_values
 from .zadoff_chu import zc_for_config
 
 
@@ -49,17 +51,34 @@ def _rows_from_vals(vals: torch.Tensor, nfft: int) -> torch.Tensor:
                       vals[..., :h]], -1)
 
 
+@functools.lru_cache(maxsize=16)
+def _pilot_merge_order(cfg: OFDMConfig) -> np.ndarray:
+    """Used-bin position -> column of [data-only values | pilot values]:
+    the order that interleaves the two back onto the used bins."""
+    _, all_wrapped = used_bins(cfg.nfft, cfg.num_data_bins)
+    _, p_wrapped, _, d_wrapped = pilot_bin_plan(cfg)
+    col = {b: i for i, b in enumerate(d_wrapped + p_wrapped)}
+    return np.asarray([col[b] for b in all_wrapped], np.int64)
+
+
 def resource_grid(cfg: OFDMConfig, data_symbols: torch.Tensor
                   ) -> torch.Tensor:
-    """[..., num_data_symb, num_data_bins] data -> [..., num_ofdm_symb,
-    nfft] grid with the ZC synch symbols (``ofdm.py:resource_grid``)."""
-    if cfg.pilot_grid != "none":
-        raise NotImplementedError("pilot grids are not ported yet")
+    """[..., num_data_symb, num_data_only_bins] data -> [...,
+    num_ofdm_symb, nfft] grid with the ZC synch symbols
+    (``ofdm.py:resource_grid``).  With a pilot grid the known pilot values
+    sit on the pilot bins of every data symbol and the data on the rest;
+    the values are merged into used-bin order by one static gather, the
+    JAX package's scatters written as the concat form."""
     lead = data_symbols.shape[:-2]
     dev = data_symbols.device
     zc = device_table(_zc_rows, dev, cfg)
     srows = _rows_from_vals(zc.expand(*lead, *zc.shape), cfg.nfft)
-    drows = _rows_from_vals(data_symbols.to(torch.complex64), cfg.nfft)
+    vals = data_symbols.to(torch.complex64)
+    if cfg.pilot_grid != "none":
+        pv = device_table(pilot_values, dev, cfg)
+        vals = torch.cat([vals, pv.expand(*vals.shape[:-1], -1)], -1)[
+            ..., device_table(_pilot_merge_order, dev, cfg)]
+    drows = _rows_from_vals(vals, cfg.nfft)
     order = device_table(_row_order, dev, cfg)
     return torch.cat([srows, drows], -2).index_select(-2, order)
 
@@ -82,3 +101,9 @@ def modulate(cfg: OFDMConfig, grid: torch.Tensor) -> torch.Tensor:
     """[..., S, nfft] grid -> [..., S*(nfft+cp)] frame via torch.fft
     (``ofdm.py:modulate``)."""
     return cp_and_normalise(cfg, torch.fft.ifft(grid, cfg.nfft, dim=-1))
+
+
+def symbol_fft(cfg: OFDMConfig, windows: torch.Tensor) -> torch.Tensor:
+    """FFT of CP-stripped symbol windows [..., nfft]
+    (``ofdm.py:symbol_fft``)."""
+    return torch.fft.fft(windows, cfg.nfft, dim=-1)

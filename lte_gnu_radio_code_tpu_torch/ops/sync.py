@@ -1,11 +1,11 @@
-"""Synchronisation, channel estimation and MMSE equalisation in torch (the
-loopback chain's subset).
+"""Synchronisation, channel estimation and MMSE equalisation in torch.
 
 Port of ``lte_gnu_radio_code_tpu/ops/sync.py``: ``n_trials_for``,
 ``sync_spectra``, ``sync_spectrum_at``, ``sync_correlate``,
 ``sync_correlate_ifft``, ``corr_abs_from_spectra``, ``first_lock``,
-``estimate_channel``, ``mmse_gain`` and ``equalize_data_symbols`` (the plain
-twin of K2's caller), and the refractory (multi-detection) selection:
+``estimate_channel``, ``mmse_gain``, ``demap_unbias_gain`` and
+``equalize_data_symbols`` (the plain twin of K2's caller), and the
+refractory (multi-detection) selection:
 ``refractory_scan``, ``emit_slots``, ``refractory_select_idx``,
 ``refractory_table`` and ``refractory_detect``.  Functions that take a lock
 or a table of detections take leading frame dimensions: x [..., n] with
@@ -101,12 +101,17 @@ def sync_spectrum_at(cfg: OFDMConfig, x: torch.Tensor, trial,
 
 
 def sync_spectrum_at_ptr(cfg: OFDMConfig, x: torch.Tensor, ptr,
-                         method: str | None = None) -> torch.Tensor:
+                         method: str | None = None,
+                         mix: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`sync_spectrum_at` at sample pointers instead of trial
     indices: ptr [...] (one per frame) or [..., D] (a detection table per
-    frame) -> [..., m_synch*num_synch_bins] or [..., D, that]."""
+    frame) -> [..., m_synch*num_synch_bins] or [..., D, that].  ``mix``
+    (ptr's shape + [nfft]) multiplies every synch window of a pointer
+    before the transform: the CFO receivers' mixer."""
     win = windows_at(x, ptr,
                      device_table(_synch_window_offsets, x.device, cfg))
+    if mix is not None:
+        win = win * mix[..., None, :]
     if method == "dft":
         _cuda.require_fp32(x.device)
         basis = device_table(_dft_synch_bins, x.device, cfg.nfft,
@@ -348,6 +353,14 @@ def estimate_channel(cfg: OFDMConfig, spectrum: torch.Tensor, delay_idx):
 def mmse_gain(chan: torch.Tensor, snr_lin: float) -> torch.Tensor:
     """One-tap MMSE gain conj(H) / (|H|^2 + 1/SNR)."""
     return chan.conj() / (1.0 / snr_lin + chan.abs() ** 2)
+
+
+def demap_unbias_gain(chan: torch.Tensor, snr_lin: float) -> torch.Tensor:
+    """Per-bin real gain (|H|^2 + 1/SNR) / |H|^2 that removes the MMSE
+    equaliser's amplitude bias before a QAM demap
+    (``sync.py:demap_unbias_gain``)."""
+    h2 = chan.abs() ** 2
+    return (h2 + 1.0 / snr_lin) / h2.clamp_min(1e-30)
 
 
 @functools.lru_cache(maxsize=16)

@@ -8,10 +8,13 @@ stream (``hist_len_for``, ``StreamState``, ``ChunkOut``, ``init_state``,
 ``stream_step``, ``StreamingRx``) and the continuous multi-detection one
 (``reacq_lag``, ``reacq_det_max``, ``ReacqState``, ``ReacqChunkOut``,
 ``reacq_init``, ``reacq_step``, ``ReacqStreamingRx``,
-``BatchReacqStreamingRx``), with ``push``, ``push_many``, ``finish`` and
-npz checkpoints whose keys are the JAX receivers', so a checkpoint written
-by either package resumes in the other.  The tracker and legacy CFO/DSSS
-streams are not ported yet.
+``BatchReacqStreamingRx``) and the legacy CFO/DSSS one (``legacy_lag``,
+``LegacyStreamState``, ``LegacyChunkOut``, ``legacy_init``,
+``legacy_stream_step``, ``LegacyStreamingRx``), with ``push``,
+``push_many``, ``finish`` and npz checkpoints whose keys are the JAX
+receivers', so a checkpoint written by either package resumes in the
+other.  The receivers serve every modulation the demap knows
+(``models/stream_rx.py:hard_decide``).  The tracker stream waits.
 
 A step keeps static shapes (fixed [det_max] / [kmax] tables with a
 ``valid`` mask), holds its carry in device tensors and never waits for the
@@ -36,9 +39,10 @@ import numpy as np
 import torch
 
 from ..kernels import equalize, sync_search
-from ..models import stream_rx
+from ..models import legacy_rx, stream_rx
+from ..ops import cfo as cfo_ops
 from ..ops import fast_sync, sync
-from ..utils.device import resolve_device
+from ..utils.device import as_samples, kernel_default, resolve_device
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
 
@@ -295,30 +299,16 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     return new_state, out
 
 
-def _as_chunks(x, device: torch.device) -> torch.Tensor:
-    """Samples (a tensor or anything numpy takes) as complex64 on device."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.asarray(x, np.complex64))
-    return x.to(device=device, dtype=torch.complex64)
-
-
 def _push_many(rx, chunks):
     """K chunk steps in one call for any receiver: outputs gain a leading K
     axis and equal those of K ``push`` calls exactly.  Full chunks only;
     partial and flush chunks go through ``push`` / ``finish``."""
-    chunks = _as_chunks(chunks, rx.device)
+    chunks = as_samples(chunks, rx.device)
     if chunks.shape[1:] != rx.chunk_shape:
         raise ValueError(f"push_many: chunks {tuple(chunks.shape)}, expected "
                          f"[K, {', '.join(map(str, rx.chunk_shape))}]")
     outs = [rx.push(c) for c in chunks]
     return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
-
-
-def _kernel_defaults(device: torch.device, fast, demod_path):
-    """On a CUDA device the search and the demod default to the kernels."""
-    if device.type == "cuda":
-        return fast or "kernel", demod_path or "kernel"
-    return fast, demod_path
 
 
 def _save_npz(path, state, complex_fields: dict) -> None:
@@ -369,18 +359,19 @@ class ReacqStreamingRx:
         self.chunk_len = chunk_len
         self.device = resolve_device(device)
         self.det_max = reacq_det_max(cfg, chunk_len)
-        fast, demod_path = _kernel_defaults(self.device, fast, demod_path)
+        self.lag = reacq_lag(cfg)
         self.state = reacq_init(cfg, self.device, self.batch)
         self._step = functools.partial(
-            reacq_step, cfg, det_max=self.det_max, fast=fast,
-            demod_path=demod_path)
+            reacq_step, cfg, det_max=self.det_max,
+            fast=kernel_default(self.device, fast),
+            demod_path=kernel_default(self.device, demod_path))
 
     @property
     def chunk_shape(self) -> tuple:
         return self.state.hist.shape[:-1] + (self.chunk_len,)
 
     def push(self, chunk, n_real: int | None = None) -> ReacqChunkOut:
-        chunk = _as_chunks(chunk, self.device)
+        chunk = as_samples(chunk, self.device)
         if chunk.shape != self.chunk_shape:
             raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
                              f"{tuple(self.chunk_shape)}")
@@ -397,7 +388,7 @@ class ReacqStreamingRx:
         zeros = torch.zeros(self.chunk_shape, dtype=torch.complex64,
                             device=self.device)
         return [self.push(zeros, n_real=0)
-                for _ in range(-(-reacq_lag(self.cfg) // self.chunk_len))]
+                for _ in range(-(-self.lag // self.chunk_len))]
 
     # -- checkpoint and resume: the JAX receiver's npz keys ------------------
     def save_state(self, path) -> None:
@@ -441,14 +432,14 @@ class StreamingRx:
         self.chunk_len = chunk_len
         self.chunk_shape = (chunk_len,)
         self.device = resolve_device(device)
-        fast, demod_path = _kernel_defaults(self.device, fast, demod_path)
         self.state = init_state(cfg, chunk_len, self.device)
         self._step = functools.partial(
             stream_step, cfg, num_patterns_total=num_patterns_total,
-            fast=fast, demod_path=demod_path)
+            fast=kernel_default(self.device, fast),
+            demod_path=kernel_default(self.device, demod_path))
 
     def push(self, chunk) -> ChunkOut:
-        chunk = _as_chunks(chunk, self.device)
+        chunk = as_samples(chunk, self.device)
         if chunk.shape != self.chunk_shape:
             raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
                              f"[{self.chunk_len}]")
@@ -470,3 +461,136 @@ class StreamingRx:
 
     def load_state(self, path) -> None:
         self.state = _load_npz(path, self.state, self._COMPLEX)
+
+
+# ---------------------------------------------------------------------------
+# Streaming legacy CFO/DSSS receiver
+# ---------------------------------------------------------------------------
+#
+# The legacy blocks run forever as streaming blocks: every call slides the
+# CFO x delay search over the new samples, the detection table grows across
+# calls, and each detection demodulates the one data symbol that follows it,
+# re-mixed by its winning CFO candidate and then despread.
+# models/legacy_rx.py is the whole-buffer form; here the same math runs
+# chunk by chunk with the refractory rule carried across chunk edges, so the
+# chunked outputs equal the whole-buffer run's.
+
+
+def legacy_lag(cfg: OFDMConfig) -> int:
+    """History length of the legacy stream: a trial at local pointer cp
+    reads its synch pattern and its one data symbol, rounded up to a stride
+    multiple so that chunk trial grids stay aligned."""
+    need = cfg.cp_len + cfg.m_synch * cfg.rx_b_len + cfg.nfft
+    s = max(1, cfg.stride)
+    return -(-need // s) * s
+
+
+class LegacyStreamState(NamedTuple):
+    hist: torch.Tensor          # [lag] trailing samples
+    base: torch.Tensor          # global index of the next chunk's start
+    real_end: torch.Tensor      # global count of real (non-flush) samples
+    last_det_ptr: torch.Tensor
+    any_det: torch.Tensor
+
+
+class LegacyChunkOut(NamedTuple):
+    ptrs: torch.Tensor       # [det_max] global detection pointers, or -1
+    delays: torch.Tensor     # [det_max] winning delay hypotheses
+    peaks: torch.Tensor      # [det_max] correlation peaks
+    fo_idx: torch.Tensor     # [det_max] winning CFO candidate index
+    valid: torch.Tensor      # [det_max] bool
+    demod_ok: torch.Tensor   # [det_max] bool: data window in real samples
+    chans: torch.Tensor      # [det_max, nfft] per-detection channel
+    phasors: torch.Tensor    # [det_max, num_data_bins] equalised data
+    despread: torch.Tensor   # [det_max, num_data_bins/dsss]
+
+
+def legacy_init(cfg: OFDMConfig, device="cpu") -> LegacyStreamState:
+    i32 = functools.partial(_scalar, 0, torch.int32, device)
+    return LegacyStreamState(
+        hist=torch.zeros(legacy_lag(cfg), dtype=torch.complex64,
+                         device=device),
+        base=i32(), real_end=i32(), last_det_ptr=i32(),
+        any_det=_scalar(False, torch.bool, device))
+
+
+def legacy_stream_step(cfg: OFDMConfig, state: LegacyStreamState,
+                       chunk: torch.Tensor, n_real, det_max: int,
+                       bank: torch.Tensor, dsss: int = 1,
+                       demod_path: str | None = None
+                       ) -> tuple[LegacyStreamState, LegacyChunkOut]:
+    """One chunk of the continuous CFO-search receiver
+    (``stream.py:legacy_stream_step``).  The trial grid is ``reacq_step``'s
+    (trials lag ``legacy_lag`` behind the input, so every trial's whole
+    reach is readable in ext = [hist, chunk]); the search is the
+    candidate-by-candidate scan of ``ops/cfo.py`` in plain torch, and the
+    per-detection demod one call over the detection table (K2 with
+    ``demod_path="kernel"``).  Static shapes, the carry on the device,
+    nothing waits for the host."""
+    chunk_len = chunk.shape[-1]
+    stride = _stride_aligned(cfg, chunk_len)
+    lag = legacy_lag(cfg)
+    dev = chunk.device
+    ext = torch.cat([state.hist, chunk], -1)
+    ext_start = state.base - lag                 # global coordinate of ext[0]
+
+    t_per = chunk_len // stride
+    dmax_val, delay_win, fo_win = cfo_ops.cfo_search_scan(cfg, ext, t_per,
+                                                          bank)
+    local_ptrs = cfg.cp_len + stride * torch.arange(t_per, device=dev)
+    global_ptrs = ext_start[..., None] + local_ptrs
+    crossing = (dmax_val > sync.gate_level(cfg)) & (global_ptrs >= cfg.cp_len)
+
+    g_ptrs, (l_ptrs, delays, fo_sel, peaks), count, (last_ptr, any_det) = \
+        sync.refractory_table(
+            cfg, crossing, (local_ptrs, delay_win, fo_win, dmax_val),
+            det_max, ext_start + cfg.cp_len, state.last_det_ptr,
+            state.any_det)
+    valid = torch.arange(det_max, device=dev) < count[..., None]
+
+    # channel estimate of each detection from its own re-mixed spectrum
+    det_spec = cfo_ops.spectra_at_detections(
+        cfg, ext, torch.where(valid, l_ptrs, 0), fo_sel, bank)
+    _, chans, _ = sync.estimate_channel(cfg, det_spec,
+                                        delays.to(torch.int64))
+    chans = chans * valid[..., None]
+
+    # one data symbol per detection, gated on its window lying in real
+    # samples
+    real_end = state.real_end + n_real
+    data_off = cfg.m_synch * cfg.rx_b_len
+    demod_ok = valid & (g_ptrs + data_off + cfg.nfft <= real_end[..., None])
+    phasors = legacy_rx.demod_after_detections(
+        cfg, ext, torch.where(demod_ok, l_ptrs + data_off, 0), demod_ok,
+        delays, fo_sel, chans, bank, demod_path)
+
+    new_state = LegacyStreamState(
+        hist=ext[..., -lag:].clone(), base=state.base + chunk_len,
+        real_end=real_end, last_det_ptr=last_ptr, any_det=any_det)
+    out = LegacyChunkOut(
+        ptrs=torch.where(valid, g_ptrs, -1), delays=delays, peaks=peaks,
+        fo_idx=fo_sel, valid=valid, demod_ok=demod_ok, chans=chans,
+        phasors=phasors, despread=cfo_ops.dsss_despread(phasors, dsss))
+    return new_state, out
+
+
+class LegacyStreamingRx(ReacqStreamingRx):
+    """Host-side front end of the continuous CFO/DSSS receiver: push(chunk)
+    is one call of the legacy block's work(), finish() flushes the lag so
+    that trailing detections and their data symbols resolve.  ``push``,
+    ``push_many``, ``finish`` and the npz checkpoints (the JAX receiver's
+    six keys) are the continuous receiver's."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, fo_range=(0.0,),
+                 dsss: int = 1, demod_path=None, device=None):
+        _stride_aligned(cfg, chunk_len)
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.device = resolve_device(device)
+        self.det_max = reacq_det_max(cfg, chunk_len)
+        self.lag = legacy_lag(cfg)
+        self.state = legacy_init(cfg, self.device)
+        self._step = functools.partial(
+            legacy_stream_step, cfg, det_max=self.det_max,
+            bank=cfo_ops.bank_on(cfg, fo_range, self.device), dsss=dsss,
+            demod_path=kernel_default(self.device, demod_path))

@@ -3,6 +3,7 @@ asks for the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,16 @@ def resolve_device(name=None) -> torch.device:
                            "present; ask for the device \"cpu\" to run the "
                            "kernels' plain twins on the CPU")
     return device
+
+
+def as_samples(x, device: torch.device) -> torch.Tensor:
+    """Samples (a tensor or anything numpy takes) as complex64 on device."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.complex64))
+    return x.to(device=device, dtype=torch.complex64)
+
+
+def kernel_default(device: torch.device, path):
+    """A search or demod selector as the caller set it; where it was left
+    unset, "kernel" on a CUDA device."""
+    return path or ("kernel" if device.type == "cuda" else None)

@@ -1,18 +1,22 @@
 """OFDM numerology for the PyTorch port.
 
-The subset of ``lte_gnu_radio_code_tpu/utils/params.py`` that the loopback
-chain needs: :class:`OFDMConfig` with the same fields and derived values,
-:func:`used_bins`, and the three shipped configurations.  It is a copy, not
-an import, so that the port loads nothing of the JAX package;
-``tests/test_torch_tables.py`` pins every field and derived value equal to
-the JAX module's.  Pilot grids are not ported yet: a config that asks for
-one raises where the pilot plan would be needed.
+The subset of ``lte_gnu_radio_code_tpu/utils/params.py`` that the ported
+receivers need: :class:`OFDMConfig` with the same fields and derived values,
+:func:`used_bins`, :func:`pilot_bin_plan`, the legacy CFO/DSSS case tables
+with :func:`config_from_case`, and the three shipped configurations.  It is
+a copy, not an import, so that the port loads nothing of the JAX package;
+``tests/test_torch_tables.py`` pins every field, derived value, pilot plan
+and case equal to the JAX module's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +83,7 @@ class OFDMConfig:
     def num_pilot_bins(self) -> int:
         if self.pilot_grid == "none":
             return 0
-        raise NotImplementedError("pilot grids are not ported yet")
+        return len(pilot_bin_plan(self)[0])
 
     @property
     def num_data_only_bins(self) -> int:
@@ -130,6 +134,96 @@ def used_bins(nfft: int, num_bins: int
     signed = tuple(neg + pos)
     wrapped = tuple((nfft + b) % nfft for b in signed)
     return signed, wrapped
+
+
+@functools.lru_cache(maxsize=None)
+def pilot_bin_plan(cfg: OFDMConfig):
+    """Split the used bins into (pilot_signed, pilot_wrapped, data_signed,
+    data_wrapped), each a tuple of ints with the signed lists increasing
+    (``utils/params.py:pilot_bin_plan``): "lte" puts a pilot every
+    ``pilot_spacing`` used bins plus the upper band edge, "random" draws
+    symmetric +/- bins from a generator seeded with ``pilot_seed``."""
+    signed, _ = used_bins(cfg.nfft, cfg.num_data_bins)
+    all_bins = np.asarray(signed)
+    if cfg.pilot_grid == "none":
+        pilots = np.asarray([], dtype=np.int64)
+    elif cfg.pilot_grid == "lte":
+        pos = list(range(0, len(all_bins), cfg.pilot_spacing))
+        if (len(all_bins) - 1) not in pos:      # anchor the upper band edge
+            pos.append(len(all_bins) - 1)
+        pilots = all_bins[np.asarray(pos)]
+    elif cfg.pilot_grid == "random":
+        rng = np.random.RandomState(cfg.pilot_seed)
+        half = cfg.num_data_bins // 2
+        size = int(np.floor(cfg.num_data_bins * cfg.ref_sigs / 2))
+        ref = np.unique(rng.randint(1, half + 1, size=size))
+        pilots = np.sort(np.concatenate((-ref, ref)))
+    else:
+        raise ValueError(f"unknown pilot_grid {cfg.pilot_grid!r}")
+    data_only = np.setdiff1d(all_bins, pilots)
+
+    def wrap(b):
+        return tuple(int((cfg.nfft + v) % cfg.nfft) for v in b)
+
+    return (tuple(int(v) for v in pilots), wrap(pilots),
+            tuple(int(v) for v in data_only), wrap(data_only))
+
+
+def _case(num_ofdm_symb, fs, nfft, synch_dat, num_data_bins, dsss=1):
+    return {
+        "num_ofdm_symb": num_ofdm_symb, "fs": fs, "nfft": nfft,
+        "cp_len": nfft // 4, "num_synch_bins": nfft - 2,
+        "synch_dat": tuple(synch_dat), "num_data_bins": num_data_bins,
+        "snr": 100000000, "dsss": dsss,
+    }
+
+
+# the ten hard-coded cases of the legacy CFO-search receiver
+CFO_CASES = {
+    0: _case(48, 960000, 64, (1, 1), 12),
+    1: _case(48, 960000, 64, (1, 1), 36),
+    2: _case(48, 960000, 64, (1, 1), 48),
+    3: _case(48, 960000, 64, (2, 1), 48),
+    4: _case(48, 960000, 64, (3, 1), 24),
+    5: _case(48, 960000, 64, (2, 1), 24),
+    6: _case(24, 1920000, 128, (3, 1), 24),
+    7: _case(24, 1920000, 128, (5, 1), 100),
+    8: _case(12, 3840000, 256, (5, 1), 36),
+    9: _case(12, 3840000, 256, (2, 1), 180),
+}
+
+# the eleven cases of the DSSS receiver, with their spreading factors
+DSSS_CASES = {
+    0: _case(48, 960000, 64, (1, 1), 12, dsss=1),
+    1: _case(48, 960000, 64, (1, 1), 36, dsss=3),
+    2: _case(48, 960000, 64, (1, 1), 48, dsss=4),
+    3: _case(48, 960000, 64, (2, 1), 48, dsss=4),
+    4: _case(48, 960000, 64, (3, 1), 24, dsss=2),
+    5: _case(48, 960000, 64, (2, 1), 24, dsss=2),
+    6: _case(24, 1920000, 128, (3, 1), 24, dsss=2),
+    7: _case(24, 1920000, 128, (5, 1), 100, dsss=4),
+    8: _case(12, 3840000, 256, (5, 1), 36, dsss=3),
+    9: _case(12, 3840000, 256, (2, 1), 180, dsss=12),
+    10: _case(12, 3840000, 256, (2, 1), 180, dsss=24),
+}
+
+
+def config_from_case(table: dict, case: int, **overrides) -> OFDMConfig:
+    """The :class:`OFDMConfig` of one legacy case
+    (``utils/params.py:config_from_case``): ZC prime 37 with the parity on
+    the bins, a linear SNR, gate 0.4 and stride cp - 1."""
+    c = dict(table[case])
+    pattern = sum(c["synch_dat"])
+    nsym = int(math.ceil(c["num_ofdm_symb"] / pattern)) * pattern
+    kw = dict(
+        nfft=c["nfft"], cp_len=c["cp_len"], num_ofdm_symb=nsym,
+        synch_dat=c["synch_dat"], num_data_bins=c["num_data_bins"],
+        num_synch_bins=c["num_synch_bins"], zc_prime=37,
+        zc_parity_on="bins", snr_db=float(c["snr"]), snr_convention="linear",
+        detection_gate=0.4, stride=c["cp_len"] - 1,
+    )
+    kw.update(overrides)
+    return OFDMConfig(**kw).validate()
 
 
 GOLDEN64 = OFDMConfig().validate()

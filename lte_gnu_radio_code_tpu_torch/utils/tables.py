@@ -2,8 +2,10 @@
 
 The system has no learned weights; what it carries are constant tables
 (DFT/IDFT bases, correlation kernels, the synch symbols' time rows, the
-channel impulse responses).  Each is built in numpy by the port module that
-uses it, beside the module that builds it in the JAX package.
+channel impulse responses, the QAM constellations, the pilot values and
+interpolators, the CFO mixer bank and the DSSS code).  Each is built in
+numpy by the port module that uses it, beside the module that builds it in
+the JAX package.
 :func:`port_tables` names them all for one configuration,
 :func:`tables_to_device` turns such a dict (the port's, or one made by the
 JAX package's table functions, whose planar tables are ``(re, im)``
@@ -44,11 +46,15 @@ def device_table(make, device: torch.device, *args) -> torch.Tensor:
     return tables_to_device({"t": make(*args)}, device)["t"]
 
 
-def port_tables(cfg: OFDMConfig) -> dict[str, np.ndarray]:
-    """Every constant table the loopback chain uses at ``cfg``."""
+def port_tables(cfg: OFDMConfig, fo_range=None,
+                dsss: int = 1) -> dict[str, np.ndarray]:
+    """Every constant table the ported receivers use at ``cfg``: the
+    loopback chain's, the constellation of every modulation, with a pilot
+    grid the pilot values and both interpolators, and for the legacy
+    receivers (``fo_range`` given) the CFO mixer bank and the DSSS code."""
     from ..kernels import equalize, ofdm_mod
     from ..models import txofdm
-    from ..ops import channel, fast_sync, sync
+    from ..ops import cfo, channel, fast_sync, modulation, pilots, sync
 
     _, data_bins = used_bins(cfg.nfft, cfg.num_data_bins)
     out = {
@@ -61,4 +67,15 @@ def port_tables(cfg: OFDMConfig) -> dict[str, np.ndarray]:
     }
     for name in channel.CHANNELS_SISO:
         out[f"cir_{name}"] = channel.channel_taps(name)
+    for mod in modulation.BITS_PER_SYMBOL:
+        pts, bit_tbl = modulation._constellation_table(mod)
+        out[f"points_{mod}"], out[f"point_bits_{mod}"] = pts, bit_tbl
+    if cfg.pilot_grid != "none":
+        left, weight = pilots._linear_interp_plan(cfg)
+        out.update(pilot_values=pilots.pilot_values(cfg),
+                   pilot_interp_cir=pilots._cir_interp_matrix(cfg),
+                   pilot_interp_left=left, pilot_interp_weight=weight)
+    if fo_range is not None:
+        out["cfo_bank"] = cfo.cfo_bank(cfg, fo_range)
+        out["dsss_code"] = cfo.dsss_code(dsss)
     return out

@@ -8,7 +8,10 @@ two, and the wrapper to the route rule.  Imports no JAX, so it also runs
 on a GPU host that has none (``--noconftest`` skips tests/conftest.py,
 which imports jax).  The serving path (``runtime/stream.py``) is held at a
 short stream: K4 and K2 at a chunk step's shapes, and the receivers on the
-kernel path against the plain path:
+kernel path against the plain path.  The other receiver generations are
+held the same way: K2 with the rotation alone against ``torch.fft`` at the
+pilot shapes, and the kernel path against the plain path for the QAM chain,
+the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -23,12 +26,15 @@ from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import (_cuda, channel_conv,
                                                   equalize, fft, ofdm_mod,
                                                   sync_search)
-from lte_gnu_radio_code_tpu_torch.models import (chain, rxofdm, stream_rx,
-                                                 txofdm)
-from lte_gnu_radio_code_tpu_torch.ops import channel, sync
+from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, rxofdm,
+                                                 split, stream_rx, txofdm)
+from lte_gnu_radio_code_tpu_torch.ops import channel, pilots, sync
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
-from lte_gnu_radio_code_tpu_torch.utils.params import (GOLDEN64, LTE1024,
-                                                       LTE2048, used_bins)
+from lte_gnu_radio_code_tpu_torch.utils.params import (CFO_CASES, DSSS_CASES,
+                                                       GOLDEN64, LTE1024,
+                                                       LTE2048,
+                                                       config_from_case,
+                                                       used_bins)
 
 pytestmark = pytest.mark.cuda
 
@@ -429,6 +435,196 @@ def test_cli_loopback_runs_on_the_card(dev):
     assert out == {"found": True, "lock_ptr": 16, "delay_idx": 1,
                    "ber": 0.0}
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 1)
+
+
+PILOT_CFGS = pytest.mark.parametrize("cfg", [
+    dataclasses.replace(G24, modulation="QAM16", pilot_grid="lte",
+                        pilot_spacing=4),
+    dataclasses.replace(G24, pilot_grid="random", ref_sigs=0.3),
+    dataclasses.replace(L8, modulation="QAM64", pilot_grid="lte",
+                        pilot_spacing=6)],
+    ids=["golden64-lte4", "golden64-random", "lte1024-lte6"])
+
+
+@PILOT_CFGS
+def test_k2_with_the_rotation_alone_equals_torch_fft(dev, cfg):
+    """The pilot equaliser's K2 call: the windows of four frames at their
+    locks with a unit-modulus rotation row a window against torch.fft +
+    power norm + rotation, and the whole pilot equaliser in both forms."""
+    _, xs = _frames(cfg, dev, 4, seed=31)
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, xs.shape[1])
+    corr = sync_search.sync_corr_abs(cfg, xs, n_trials)
+    ptr, delay, _, found, _ = sync.first_lock(cfg, corr)
+    assert bool(found.all())
+    win = equalize.data_windows(cfg, xs, ptr, num_patterns)
+    rot = equalize.derotation(cfg, delay, dev)
+    kernels.reset_launch_counts()
+    fu = equalize.demod_frames(cfg, win, rot)
+    assert kernels.launch_counts()["equalize"] == 1
+    bins = sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
+    f = torch.fft.fft(win, cfg.nfft, dim=-1)[..., bins]
+    power = (f.abs() ** 2).sum(-1, keepdim=True)
+    ref = f * torch.sqrt(f.shape[-1] / power) * rot[:, None, :]
+    torch.testing.assert_close(fu, ref, atol=2e-4, rtol=0)
+    a, ha = pilots.equalize_data_symbols_pilot(
+        cfg, xs, ptr, delay, num_patterns, return_chan=True, eq="kernel")
+    b, hb = pilots.equalize_data_symbols_pilot(
+        cfg, xs, ptr, delay, num_patterns, return_chan=True)
+    torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+    torch.testing.assert_close(ha, hb, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("cfg", [
+    dataclasses.replace(G24, modulation="QAM16"),
+    dataclasses.replace(G24, modulation="QAM64"),
+    dataclasses.replace(G24, modulation="QAM16", pilot_grid="lte",
+                        pilot_spacing=4, channel="Ideal"),
+    dataclasses.replace(G24, modulation="QAM64", pilot_grid="random",
+                        ref_sigs=0.3),
+    dataclasses.replace(L8, modulation="QAM64", pilot_grid="lte",
+                        pilot_spacing=6)],
+    ids=["qam16", "qam64", "qam16-lte4-ideal", "qam64-random",
+         "lte1024-qam64-lte6"])
+def test_qam_and_pilot_chain_kernel_path_equals_plain(dev, cfg):
+    """chain_batch at 100 dB for QAM and pilot configs: one launch of each
+    kernel, every frame locked with BER 0, and the plain chain's bits."""
+    n_samples = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n_samples)
+    bits, _ = _frames(cfg, dev, 4, seed=32)
+    noise = _cplx(dev, 33, 4, n_samples)
+    h = chain.loopback_taps(cfg)
+    kernels.reset_launch_counts()
+    r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 1)
+    assert bool(r.found.all()) and float(r.ber.max()) == 0.0
+    p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
+                          plain=True)
+    assert torch.equal(r.hard_bits, p.hard_bits)
+    assert torch.equal(r.lock_ptr, p.lock_ptr)
+    one = rxofdm.rx_frame(cfg, _frames(cfg, dev, 2, seed=34)[1], n_trials,
+                          num_patterns, fast="kernel", eq="kernel")
+    assert one.hard_bits.shape == (2, cfg.num_bits) and bool(one.found.all())
+
+
+def _legacy_stream(cfg, dev, n_frames, seed, cfo_hz=0.0):
+    bits = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2, (n_frames, cfg.num_bits), dtype=np.int32)).to(dev)
+    tx = txofdm.tx_frames(cfg, bits).reshape(1, -1)
+    x = channel.apply_channel(tx, chain.loopback_taps(cfg))[0]
+    t = torch.arange(len(x), device=dev, dtype=torch.float64)
+    return (x * torch.exp(1j * (2 * np.pi * cfo_hz / cfg.fs) * t).to(
+        torch.complex64)).contiguous()
+
+
+LEGACY_CASES = pytest.mark.parametrize("table,case,cfo_hz", [
+    (CFO_CASES, 0, 1500.0), (CFO_CASES, 7, 1500.0), (DSSS_CASES, 4, 0.0),
+    (DSSS_CASES, 9, 0.0)], ids=["cfo0", "cfo7", "dsss4", "dsss9"])
+
+
+@LEGACY_CASES
+def test_rx_frame_cfo_kernel_path_equals_plain(dev, table, case, cfo_hz):
+    """The whole-buffer legacy receiver as a user builds it (on the card,
+    K2 by default): one K2 launch and no other kernel; the table equal to
+    the plain path's ("dft") and to torch.fft's, floats within 2e-4."""
+    cfg = config_from_case(table, case)
+    fo_range = (0.0, -1500.0, 1500.0) if cfo_hz else (0.0,)
+    dsss = table[case]["dsss"]
+    x = _legacy_stream(cfg, dev, 3, seed=35, cfo_hz=cfo_hz)
+    make = lambda **kw: legacy_rx.make_legacy_rx(
+        cfg, len(x), fo_range=fo_range, dsss=dsss, max_det=128, **kw)
+    kernels.reset_launch_counts()
+    r = make()(x)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "equalize": 1}
+    assert 3 * cfg.num_patterns // 2 <= int(r.count) < 128
+    for path in ("dft", None):
+        p = (make(demod_path=path) if path else
+             lambda y: legacy_rx.rx_frame_cfo(
+                 cfg, y, sync.n_trials_for(cfg, len(y)), fo_range, dsss, 128))(x)
+        for name in ("ptrs", "delays", "fo_idx", "count"):
+            assert torch.equal(getattr(r, name), getattr(p, name)), name
+        for name in ("phasors", "despread", "chan_freq"):
+            torch.testing.assert_close(getattr(r, name), getattr(p, name),
+                                       atol=2e-4, rtol=0)
+    assert kernels.launch_counts()["equalize"] == 1
+
+
+@LEGACY_CASES
+def test_legacy_stream_kernel_path_equals_plain(dev, table, case, cfo_hz):
+    """LegacyStreamingRx with no device: one K2 launch a step and no other
+    kernel; every field of every chunk equal to the plain path's, floats
+    within 2e-4; push_many == pushes; no step waits for the host."""
+    cfg = config_from_case(table, case)
+    fo_range = (0.0, -1500.0, 1500.0) if cfo_hz else (0.0,)
+    dsss = table[case]["dsss"]
+    chunk = 128 * cfg.stride
+    x = _legacy_stream(cfg, dev, 12, seed=36, cfo_hz=cfo_hz)
+    k = len(x) // chunk
+    chunks = x[:k * chunk].reshape(k, chunk)
+    make = lambda **kw: rt.LegacyStreamingRx(cfg, chunk, fo_range=fo_range,
+                                             dsss=dsss, **kw)
+    rx = make()
+    assert rx.device.type == "cuda"
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    tail = rx.finish()
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "equalize": k + len(tail)}
+    assert int(many.valid.sum()) >= k * chunk // (
+        cfg.pattern_len * cfg.rx_b_len) // 2
+    plain = make(demod_path="dft").push_many(chunks)
+    for name in many._fields:
+        a, b = getattr(many, name), getattr(plain, name)
+        if a.dtype.is_floating_point or a.dtype.is_complex:
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+        else:
+            assert torch.equal(a, b), name
+    seq = make()
+    for i, c in enumerate(chunks):
+        out = seq.push(c)
+        for name in out._fields:
+            assert torch.equal(getattr(out, name), getattr(many, name)[i])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seq.push(chunks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_split_rx_on_the_card_equals_rx_frame(dev):
+    """make_split_rx with no device: K4 then K2, one launch each, and the
+    monolithic rx_frame's lock, delay and bits."""
+    cfg = GOLDEN64
+    bits, xs = _frames(cfg, dev, 1, seed=37)
+    find, demod = split.make_split_rx(cfg, xs.shape[1])
+    kernels.reset_launch_counts()
+    a = find(xs[0])
+    b = demod(a.passthrough, a.ptrs[0], a.delays[0])
+    counts = kernels.launch_counts()
+    assert (counts["sync_search"], counts["equalize"]) == (1, 1)
+    mono = rxofdm.make_rx(cfg, xs.shape[1], fast="kernel", eq="kernel")(xs[0])
+    assert int(a.count) == cfg.num_patterns
+    assert (int(a.ptrs[0]), int(a.delays[0])) == (int(mono.lock_ptr),
+                                                  int(mono.delay_idx))
+    assert torch.equal(b.hard_bits, mono.hard_bits)
+    assert torch.equal(b.hard_bits, bits[0])
+
+
+def test_qam_serving_kernel_path_equals_plain_path(dev):
+    """The continuous receiver on QAM16 streams: kernel path == plain path
+    in tables and hard bits, the unbiased phasors within 2e-4."""
+    cfg = dataclasses.replace(GOLDEN64, modulation="QAM16")
+    k, batch, chunk = 4, 3, 4800
+    chunks = _streams(cfg, dev, batch, k * chunk, seed=38).reshape(
+        batch, k, chunk).transpose(0, 1).contiguous()
+    many = rt.BatchReacqStreamingRx(cfg, chunk, batch).push_many(chunks)
+    plain = rt.BatchReacqStreamingRx(cfg, chunk, batch, fast="conv",
+                                     demod_path="dft").push_many(chunks)
+    assert many.hard_bits.shape[-1] == 4 * cfg.num_data_bins
+    for name in ("ptrs", "delays", "valid", "demod_ok", "hard_bits"):
+        assert torch.equal(getattr(many, name), getattr(plain, name)), name
+    torch.testing.assert_close(many.phasors, plain.phasors, atol=2e-4, rtol=0)
+    assert int(many.valid.sum()) >= batch * (k * chunk // 320 - 2)
 
 
 def test_twins_run_without_tf32(dev):

@@ -210,8 +210,17 @@ def test_rx_frame_genie_channel_matches_jax():
 
 
 def test_unported_configs_raise():
+    """QAM and pilot configs, which raised until they were ported, run; what
+    no package knows still raises."""
     x = torch.zeros(5000, dtype=torch.complex64)
     for cfg in (dataclasses.replace(G24, modulation="QAM16"),
                 dataclasses.replace(G24, pilot_grid="lte")):
-        with pytest.raises(NotImplementedError):
-            rxofdm.rx_frame(port_cfg(cfg), x, 10, 2)
+        r = rxofdm.rx_frame(port_cfg(cfg), x, 10, 2)
+        assert not bool(r.found) and r.hard_bits.shape == (
+            2 * cfg.synch_dat[1] * cfg.num_data_only_bins * cfg.bits_per_bin,)
+    with pytest.raises(ValueError, match="pilot_grid"):
+        rxofdm.rx_frame(port_cfg(dataclasses.replace(G24, pilot_grid="comb")),
+                        x, 10, 2)
+    with pytest.raises(KeyError):
+        rxofdm.rx_frame(port_cfg(dataclasses.replace(G24, modulation="PSK8")),
+                        x, 10, 2)

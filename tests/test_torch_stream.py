@@ -274,9 +274,12 @@ def test_hard_decide_on_both_sides_of_both_thresholds():
     real_rail = dict(zip(vals.tolist(), hard[:, 0].tolist()))
     assert real_rail[0.5] == 0 and real_rail[-0.5] == 1
     assert real_rail[1.5] == 1 and real_rail[-1.5] == 0     # the overshoot
-    with pytest.raises(NotImplementedError):
-        stream_rx.hard_decide(reduced(CFG, modulation="QAM16"),
-                              torch.from_numpy(ph))
+    for mod in ("QAM16", "QAM64"):      # the max-log decision, any shape
+        qcfg = reduced(CFG, modulation=mod)
+        q = stream_rx.hard_decide(port_cfg(qcfg), torch.from_numpy(ph))
+        assert q.shape == (len(vals), len(vals) * qcfg.bits_per_bin)
+        np.testing.assert_array_equal(
+            q, np.asarray(jstream_rx.hard_decide(qcfg, jnp.asarray(ph))))
 
 
 # ---------------------------------------------------------------------------
@@ -325,8 +328,9 @@ def test_unknown_selectors_raise(faded):
         stream_rx.rx_detections(PCFG, x, 100, fast="pallas")
     with pytest.raises(ValueError):
         stream_rx.rx_detections(PCFG, x, 100, demod_path="fft")
-    with pytest.raises(NotImplementedError):
-        stream_rx.rx_detections(reduced(CFG, modulation="QAM16"), x, 100)
+    q = stream_rx.rx_detections(port_cfg(reduced(CFG, modulation="QAM16")),
+                                x, 100)
+    assert q.hard_bits.shape == (100, 3, 60 * 4) and int(q.count) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +367,37 @@ def test_reacq_stream_equals_batch_and_jax(faded, jax_batch, chunk):
                                batch.phasors[:nb], atol=2e-5, rtol=0)
     np.testing.assert_array_equal(
         _valid(outs, "hard_bits")[keep].ravel(), bits)
+
+
+@pytest.mark.parametrize("mod,snr_db", [("QAM16", 100.0), ("QAM16", 18.0)])
+def test_reacq_stream_serves_qam(mod, snr_db):
+    """The continuous receiver on a QAM16 stream with no change of its own:
+    chunk by chunk == the JAX receiver (tables and hard bits exact, the
+    unbiased phasors within 2e-4), on torch.fft and on the kernel path's
+    CPU twins; at 100 dB the hard bits are the sent bits."""
+    from torch_parity import (assert_bits_equal_or_on_boundary,
+                              jax_rx_buffer)
+    cfg = reduced(CFG, modulation=mod, num_ofdm_symb=120, snr_db=snr_db)
+    pcfg = port_cfg(cfg)
+    rx, bits = jax_rx_buffer(cfg, 31, None if snr_db == 100.0 else snr_db)
+    chunk = 960
+    jouts = _drive(jrt.ReacqStreamingRx(cfg, chunk), rx, chunk)
+    for fast, demod_path in ((None, None), ("kernel", "kernel")):
+        outs = _drive(rt.ReacqStreamingRx(pcfg, chunk, fast=fast,
+                                          demod_path=demod_path,
+                                          device="cpu"), rx, chunk)
+        for i, (o, jo) in enumerate(zip(outs, jouts)):
+            skip = type(o)(*(getattr(jo, f) if f == "hard_bits"
+                             else getattr(o, f) for f in o._fields))
+            _assert_same(skip, jo, f"chunk {i} {fast}/{demod_path}")
+            assert_bits_equal_or_on_boundary(o.hard_bits, jo.hard_bits,
+                                             jo.phasors, cfg, ATOL)
+        hard = _valid(outs, "hard_bits")
+        assert hard.shape == (cfg.num_patterns, 3, 60 * cfg.bits_per_bin)
+        if snr_db == 100.0:
+            np.testing.assert_array_equal(hard.ravel(), bits)
+        else:
+            assert 0 < (hard.ravel() != bits).sum() < 0.1 * bits.size
 
 
 def test_reacq_drift_and_channel_change():
@@ -615,12 +650,14 @@ def test_receiver_without_device_raises_where_there_is_no_cuda(monkeypatch,
 
 
 def test_kernel_defaults_follow_the_device():
-    assert rt._kernel_defaults(torch.device("cuda"), None, None) == (
+    from lte_gnu_radio_code_tpu_torch.utils.device import kernel_default
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert (kernel_default(cuda, None), kernel_default(cuda, None)) == (
         "kernel", "kernel")
-    assert rt._kernel_defaults(torch.device("cuda"), "conv", "dft") == (
+    assert (kernel_default(cuda, "conv"), kernel_default(cuda, "dft")) == (
         "conv", "dft")
-    assert rt._kernel_defaults(torch.device("cpu"), None, None) == (None,
-                                                                   None)
+    assert (kernel_default(cpu, None), kernel_default(cpu, None)) == (None,
+                                                                      None)
     with pytest.raises(ValueError, match="stride"):
         rt.ReacqStreamingRx(port_cfg(S31), 1000, device="cpu")
 

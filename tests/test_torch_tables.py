@@ -11,8 +11,11 @@ import pytest
 import torch
 
 from lte_gnu_radio_code_tpu.models import txofdm as jtx
+from lte_gnu_radio_code_tpu.ops import cfo as jcfo
 from lte_gnu_radio_code_tpu.ops import channel as jchan
 from lte_gnu_radio_code_tpu.ops import fast_sync as jfs
+from lte_gnu_radio_code_tpu.ops import modulation as jmodulation
+from lte_gnu_radio_code_tpu.ops import pilots as jpilots
 from lte_gnu_radio_code_tpu.ops import sync as jsync
 from lte_gnu_radio_code_tpu.ops import zadoff_chu as jzc
 from lte_gnu_radio_code_tpu.pallas_kernels import equalize as jeq
@@ -30,8 +33,10 @@ DERIVED = ["rx_b_len", "m_synch", "n_data_per_pattern", "pattern_len", "mm",
            "num_data_only_bins", "num_bits", "frame_len", "snr_linear", "fs"]
 
 
-def jax_tables(cfg):
-    """The same tables as port_tables, from the JAX package's functions."""
+def jax_tables(cfg, fo_range=None, dsss=1):
+    """The same tables as port_tables, from the JAX package's functions
+    (its linear interpolator is ``jnp.interp``, which has no table: the
+    port's plan is held to ``np.interp`` below)."""
     _, data_bins = jparams.used_bins(cfg.nfft, cfg.num_data_bins)
     out = {
         "sync_kernels": jfs._kernels(cfg),
@@ -44,6 +49,15 @@ def jax_tables(cfg):
     }
     for name in jchan.CHANNELS_SISO:
         out[f"cir_{name}"] = jchan.channel_taps(name)
+    for mod in jmodulation.BITS_PER_SYMBOL:
+        out[f"points_{mod}"], out[f"point_bits_{mod}"] = \
+            jmodulation._constellation_table(mod)
+    if cfg.pilot_grid != "none":
+        out.update(pilot_values=jpilots.pilot_values(cfg),
+                   pilot_interp_cir=jpilots._cir_interp_matrix(cfg))
+    if fo_range is not None:
+        out["cfo_bank"] = jcfo.cfo_bank(cfg, fo_range)
+        out["dsss_code"] = jcfo.dsss_code(dsss)
     return out
 
 
@@ -105,3 +119,31 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=repo,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("grid", [dict(pilot_grid="lte", pilot_spacing=4),
+                                  dict(pilot_grid="random", ref_sigs=0.3)],
+                         ids=["lte", "random"])
+def test_pilot_qam_and_legacy_tables_equal_jax(grid):
+    """The tables this slice added: constellations, pilot values, the
+    transform-domain interpolator, the CFO bank and the DSSS code exactly;
+    the linear interpolator's (left, weight) plan against np.interp."""
+    jcfg = dataclasses.replace(jparams.GOLDEN64, **grid).validate()
+    fo_range, dsss = (0.0, -1500.0, 1500.0), 12
+    ours = port_tables(port_cfg(jcfg), fo_range, dsss)
+    theirs = jax_tables(jcfg, fo_range, dsss)
+    plan = {"pilot_interp_left", "pilot_interp_weight"}
+    assert ours.keys() - plan == theirs.keys() and plan <= ours.keys()
+    ours_t = tables_to_device(ours, "cpu")
+    theirs_t = tables_to_device(theirs, "cpu")
+    for key in ("pilot_values", "pilot_interp_cir", "cfo_bank", "dsss_code",
+                "points_QAM16", "point_bits_QAM16", "points_QAM64",
+                "point_bits_QAM64", "points_QPSK", "points_BPSK"):
+        assert ours_t[key].dtype == theirs_t[key].dtype, key
+        assert torch.equal(ours_t[key], theirs_t[key]), key
+    p_signed, _, d_signed, _ = jparams.pilot_bin_plan(jcfg)
+    h = np.random.default_rng(0).standard_normal(len(p_signed))
+    left, w = ours["pilot_interp_left"], ours["pilot_interp_weight"]
+    np.testing.assert_allclose(h[left] + w * (h[left + 1] - h[left]),
+                               np.interp(d_signed, p_signed, h), atol=1e-6)
+    assert "pilot_values" not in port_tables(port_cfg(jparams.GOLDEN64))
