@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: builds the four CUDA
+"""Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels, holds each against its plain PyTorch twin at the main path's
 shapes (with the bytes it moves, the operations it does, the least time
 the card could take for them and one PyTorch library call's time), then
@@ -37,7 +37,19 @@ candidates; +1500 Hz injected, and none) and DSSS case 9, chunk = 2048
 strides: detections against what was sent, chunked == whole buffer, K2
 path == plain path, one K2 launch and no other kernel a step, no host
 synchronisation.  ``split_check``: the split RX == ``rx_frame``.  The CLI
-check also runs ``cli.ber_sweep`` and a pilot config.
+check also runs ``cli.ber_sweep`` and a pilot config, and the file CLIs
+(``file_check``: ``tx_file --generate``, ``ofdm_chain --tx-pickle`` and
+``--stream``, ``rx_file --case 7 --stream``).
+
+Last, the tracker, whose step loop is a fifth kernel (``csrc/tracker.cu``,
+one block a stream looping over every step).  ``tracker_run``:
+``make_tracker`` on 16 GOLDEN64 buffers made on the card, 60 detections
+each with BER 0, one tracker and one K2 launch a call, kernel path == plain
+path, the kernel's scan == its plain twin in every carry field; the call,
+the kernel alone, and the plain step loop eager and replayed as one CUDA
+graph, timed.  ``tracker_stream_run``: ``TrackerStreamingRx`` on a
+16-frame stream with a gap: chunked == whole buffer, ``push_many`` ==
+pushes, no host synchronisation in a chunk step.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
@@ -106,6 +118,17 @@ FP32_OPS_PER_S = 66.9e12      # the same: float32 outside the tensor cores
 L2_EVICT_BYTES = 256 << 20    # read before each timed launch: > 5x the L2
 SLEEP_CLOCK_HZ = 2.0e9        # above the H100's 1.98 GHz boost clock, so a
                               # sleep of t * this many cycles lasts >= t
+# tracker: config, streams (the JAX bench's tracker batch,
+# bench_generations.py:173-200), SNR of its buffers (:175)
+TRACKER = ("GOLDEN64", 16, 80.0)
+TRACKER_STREAM_FRAMES = 16    # frames of the one tracker stream
+TRACKER_CHUNK_STRIDES = 2400  # tracker stream chunk: 2400 strides
+TRACKER_GAP = 3               # zero samples inserted into the stream
+TRACKER_GAP_FRAME = 2         # ... 37 samples after this frame's start,
+                              # before the float32 fit loses the cadence
+                              # (PERF.md, section 6)
+CHASE_BYTES = 4 << 20         # pointer-chase ring: in the L2, beyond the L1
+CHASE_STEPS = 1 << 14
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "ofdm_mod": ("lte_gnu_radio_code_tpu_torch/csrc/ofdm_mod.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/ofdm_mod.py:165"),
@@ -115,6 +138,8 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
                     "lte_gnu_radio_code_tpu/pallas_kernels/sync_search.py:314"),
     "equalize": ("lte_gnu_radio_code_tpu_torch/csrc/equalize.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/equalize.py:142"),
+    "tracker": ("lte_gnu_radio_code_tpu_torch/csrc/tracker.cu",
+                "no pallas_call: lte_gnu_radio_code_tpu/models/tracker.py:217"),
 }
 
 
@@ -453,7 +478,8 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
         raise AssertionError(f"{cell}: mean BER {float(ber.mean())} beyond "
                              f"{max_ber} ({int((ber > 0).sum())} frames with "
                              f"errors, the worst {float(ber.max())})")
-    if counts != dict.fromkeys(kernels.KERNEL_MODULES, CHAIN_REPS):
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, CHAIN_REPS),
+                  "tracker": 0}:
         raise AssertionError(f"{cell}: launches {counts} over {CHAIN_REPS} "
                              "steps, expected one of each kernel a step")
     routes = {k: v - routes0[k] for k, v in sync_search.route_launches.items()}
@@ -1274,6 +1300,386 @@ def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
     return cell, counts["equalize"], check
 
 
+def dependent_load_ms(dev) -> float:
+    """Device ms of one dependent global load: a Triton kernel chases a
+    random cycle through a CHASE_BYTES ring of int32 (held in the L2 after
+    the first lap), CHASE_STEPS loads each waiting for the one before.  A
+    yardstick of the tracker's bound; the port does not use Triton."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def chase(nxt, out, steps):
+        i = tl.load(nxt)
+        for _ in range(steps):
+            i = tl.load(nxt + i)
+        tl.store(out, i)
+
+    n = CHASE_BYTES // 4
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED))
+    ring = torch.empty(n, dtype=torch.int32)
+    ring[perm] = torch.roll(perm, -1).to(torch.int32)
+    ring = ring.to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    run = lambda: chase[(1,)](ring, out, CHASE_STEPS)
+    for _ in range(2):                      # compile, then one warm lap
+        run()
+    return event_ms(run, 5, evict=False) / CHASE_STEPS
+
+
+def tracker_streams(cfg, batch, snr_db, dev):
+    """batch buffers of one frame each (frame_len + nfft - 1 samples), made
+    on the card as the JAX bench makes them (bench_generations.py:175):
+    seeded bits through K1, the Fading convolution (K3) and AWGN at
+    snr_db.  Returns (buffers [batch, n], bits [batch, num_bits])."""
+    import dataclasses
+    from lte_gnu_radio_code_tpu_torch.kernels import channel_conv
+    from lte_gnu_radio_code_tpu_torch.models import chain, txofdm
+    from lte_gnu_radio_code_tpu_torch.ops import channel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bits = torch.randint(0, 2, (batch, cfg.num_bits), generator=gen,
+                         device=dev, dtype=torch.int32)
+    tx = txofdm.tx_frames(cfg, bits, path="kernel")
+    clean = channel_conv.apply_channel_frames(tx, chain.loopback_taps(cfg),
+                                              cfg.nfft)
+    sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
+    rx = channel.awgn(dataclasses.replace(cfg, snr_db=snr_db), clean,
+                      sig_pow[:, None], generator=gen)
+    return rx.contiguous(), bits
+
+
+def same_track(a, b, what) -> tuple[float, float, float]:
+    """Two TrackResults: count, ptrs, delays and hard bits equal; peaks
+    within 1e-5 of their size, channels within 1e-5, phasors within 2e-4
+    (the JAX package's tolerances).  Returns the three float errors."""
+    for name in ("count", "ptrs", "delays", "hard_bits"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((getattr(a, name) != getattr(b, name)).sum())}"
+                                 " places")
+    errs = (float(((a.peaks - b.peaks).abs() /
+                   b.peaks.abs().clamp_min(1.0)).max()),
+            float((a.chan_freq - b.chan_freq).abs().max()),
+            float((a.phasors - b.phasors).abs().max()))
+    for err, tol, name in zip(errs, (1e-5, 1e-5, 2e-4),
+                              ("peaks", "chans", "phasors")):
+        if err > tol:
+            raise AssertionError(f"{what}: {name} differ by {err:.3e} "
+                                 f"(allowed {tol})")
+    return errs
+
+
+def tracker_run(dev, gpu) -> list:
+    """The tracker on whole buffers (``models.tracker.make_tracker``, the
+    card's path: one launch of the step-loop kernel and one of K2 a call)
+    at GOLDEN64 B 16 (module docstring): 60 detections a stream, BER 0,
+    kernel path == plain path, the kernel's scan == its plain twin's, then
+    times: the call, the kernel alone, the plain loop eager and replayed as
+    one CUDA graph.  Returns the ``kernels`` entries."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    name, batch, snr_db = TRACKER
+    cfg = getattr(params, name)
+    cell = f"{name} tracker b{batch}"
+    xs, bits = tracker_streams(cfg, batch, snr_db, dev)
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    track = tracker.make_tracker(cfg, n)
+
+    # -- the main path --------------------------------------------------------
+    track(xs)                                           # warm-up, discarded
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = track(xs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": 1,
+            "equalize": 1}
+    wrong = int((r.hard_bits[:, :cfg.num_bits] != bits).sum())
+    if counts != want or not bool((r.count == cfg.num_patterns).all()) or \
+            wrong:
+        raise AssertionError(f"{cell}: launches {counts} (expected {want}), "
+                             f"detections {r.count.tolist()}, {wrong} bits "
+                             "differ from the sent bits")
+    print(f"{cell}: {batch} buffers of {n} samples, {steps} steps: "
+          f"{cfg.num_patterns} detections a stream, BER 0, launches {counts}")
+
+    # -- kernel path == plain path --------------------------------------------
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = tracker.make_tracker(cfg, n, scan="plain", demod_path="dft")(xs)
+    torch.cuda.synchronize()
+    plain_call_s = time.perf_counter() - t0
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{cell}: the plain path launched a kernel")
+    errs = same_track(r, p, f"{cell}: kernel path vs plain path")
+    carry0 = tracker.tracker_init_carry(batch, dev)
+    ck, yk = ktrk.track_scan(cfg, xs, 0, n, carry0, steps)
+    cp_, yp = ktrk.track_scan_plain(cfg, xs, 0, n, carry0, steps)
+    for nm, a, b in zip(("accept", "ptr", "delay"), yk, yp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cell}: scan {nm} differs in "
+                                 f"{int((a != b).sum())} steps")
+    for nm, a, b in zip(tracker.TrackerCarry._fields, ck, cp_):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cell}: carry {nm} differs")
+    peak_err = float(((yk[3] - yp[3]).abs() / yp[3].abs().clamp_min(1.0)).max())
+    h_err = float((yk[4] - yp[4]).abs().max())
+    if peak_err > 1e-5 or h_err > 1e-5:
+        raise AssertionError(f"{cell}: scan peaks within {peak_err:.3e}, "
+                             f"channel rows within {h_err:.3e} (allowed 1e-5)")
+    print(f"{cell}: kernel path == plain path (scan='plain', 'dft'): count, "
+          f"ptrs, delays, bits equal; peaks / chans / phasors within "
+          f"{errs[0]:.2e} / {errs[1]:.2e} / {errs[2]:.2e}; the kernel's "
+          f"scan == track_scan_plain: every carry field (float bits too), "
+          f"accept, ptr, delay equal, peaks within {peak_err:.2e} of their "
+          f"size, channel rows within {h_err:.2e}")
+
+    # -- times ----------------------------------------------------------------
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        track(xs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    call_s = sorted(times)[len(times) // 2]
+    scan = lambda: ktrk.track_scan(cfg, xs, 0, n, carry0, steps)
+    scan_ms = event_ms(scan, 5, evict=False)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ktrk.track_scan_plain(cfg, xs, 0, n, carry0, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        _, yg = ktrk.track_scan_plain(cfg, xs, 0, n, carry0, steps)
+    capture_s = time.perf_counter() - t0
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(yg[:3], yp[:3])):
+        raise AssertionError(f"{cell}: the graph replay's scan differs")
+    replays = []
+    for _ in range(SERVING_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append((time.perf_counter() - t0) * 1e3)
+    graph_ms = sorted(replays)[len(replays) // 2]
+    nodes = count_launches(lambda: ktrk.track_scan_plain(cfg, xs, 0, n,
+                                                         carry0, 4)) / 4
+    del graph, yg
+    load_ms = dependent_load_ms(dev)
+    nbytes = xs.nbytes + sum(c.nbytes for c in carry0) * 2 + sum(
+        y.nbytes for y in yk)
+    l_syn, d = cfg.m_synch * cfg.num_synch_bins, cfg.cp_len + 1
+    ops = batch * steps * (cfg.m_synch * 5.0 * cfg.nfft * np.log2(cfg.nfft) +
+                           8.0 * l_syn * d + 16.0 * l_syn)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"{cell}: track_frame {call_s * 1e3:.3f} ms a call (median of "
+          f"rounds {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+          f"{batch * n / call_s / 1e6:.3f} Msamples/s, "
+          f"{n / call_s / 1e6:.3f} a stream; the step-loop kernel "
+          f"{scan_ms:.3f} ms ({scan_ms * 1e3 / steps:.3f} us a step); plain "
+          f"loop eager {plain_call_s * 1e3:.1f} ms a call "
+          f"({nodes:.1f} device launches a step), captured as one CUDA "
+          f"graph in {capture_s:.1f} s and replayed in {graph_ms:.1f} ms "
+          f"(rounds {', '.join(f'{t:.1f}' for t in replays)}); bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops:.3e} "
+          f"operations), {steps} steps x one dependent load from the L2 "
+          f"({load_ms * 1e6:.1f} ns) = {steps * load_ms:.3f} ms; on {gpu}")
+
+    # -- K2 at the tracker's demod shape ----------------------------------------
+    from lte_gnu_radio_code_tpu_torch.models import stream_rx
+    from lte_gnu_radio_code_tpu_torch.ops import sync
+    from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
+    valid = torch.arange(cfg.num_patterns, device=dev) < r.count[:, None]
+    win, rot, ok = tracker.demod_track_table(cfg, xs, r.ptrs, r.delays,
+                                             valid, n)
+    bins = device_table(sync._bins, dev, cfg.nfft, cfg.num_data_bins)
+    coeff = rot * sync.mmse_gain(r.chan_freq[..., bins],
+                                 cfg.snr_linear)[..., None, :]
+    rows = win.reshape(-1, cfg.nfft).contiguous()
+    coeff = coeff.expand(*win.shape[:-1], -1).reshape(len(rows), -1
+                                                      ).contiguous()
+    k2 = equalize_check(cfg, rows, coeff)
+    print_kernel_rows(cell, {"equalize": k2})
+    entry = {"name": f"tracker [{cell}]", "route": "cuda",
+             "source": SOURCES["tracker"][0],
+             "replaces": SOURCES["tracker"][1], "launches": counts["tracker"],
+             "max_abs_err": max(peak_err, h_err), "ms": scan_ms,
+             "plain_ms": plain_call_s * 1e3, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": graph_ms,
+             "steps": steps, "us_per_step": scan_ms * 1e3 / steps,
+             "latency_bound_ms": steps * load_ms,
+             "dependent_load_ns": load_ms * 1e6,
+             "call_ms": call_s * 1e3, "msps": batch * n / call_s / 1e6}
+    return [entry, kernel_entry("equalize", cell, counts["equalize"], k2)]
+
+
+def tracker_stream_run(dev, gpu) -> None:
+    """``TrackerStreamingRx`` on one GOLDEN64 stream of TRACKER_STREAM_FRAMES
+    frames made on the card (K1, one Fading convolution over the stream,
+    AWGN at 100 dB) with TRACKER_GAP zero samples inserted in frame
+    TRACKER_GAP_FRAME, pushed in chunks of TRACKER_CHUNK_STRIDES strides:
+    one tracker and one K2 launch a step, chunked == ``track_frame`` on the
+    whole buffer, ``push_many`` == pushes, every detection before the gap
+    one pattern block after the one before and its bits == the sent bits,
+    no host synchronisation in a chunk step; its Msamples/s.  The gap lies
+    before the detection (~417 at GOLDEN64) where the reference's float32
+    least-squares fit, in the JAX package as here, loses the cadence of a
+    continuous stream; the detections after that are printed, not gated."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils.params import GOLDEN64 as cfg
+
+    cell = f"GOLDEN64 tracker stream ({TRACKER_STREAM_FRAMES} frames)"
+    stream, bits = make_streams(cfg, 1, TRACKER_STREAM_FRAMES * cfg.frame_len,
+                                dev)
+    block = cfg.pattern_len * cfg.rx_b_len
+    gap_at = TRACKER_GAP_FRAME * cfg.frame_len + 37
+    x = torch.cat([stream[0, :gap_at],
+                   torch.zeros(TRACKER_GAP, dtype=stream.dtype, device=dev),
+                   stream[0, gap_at:]])
+    chunk = TRACKER_CHUNK_STRIDES * tracker.tracker_stride(cfg)
+    k = len(x) // chunk
+    chunks = x[:k * chunk].reshape(k, chunk)
+    n_real = k * chunk
+
+    rx = rt.TrackerStreamingRx(cfg, chunk)
+    rx.push(chunks[0])                                  # warm-up, discarded
+    rx = rt.TrackerStreamingRx(cfg, chunk)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    outs = cat_outs([many, stack_outs(rx.finish())])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = outs.valid.shape[0]
+    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": steps,
+            "equalize": steps}
+    if counts != want:
+        raise AssertionError(f"{cell}: {steps} chunk steps, launches "
+                             f"{counts} (expected {want})")
+    v = outs.valid.reshape(-1)
+    got = {f: getattr(outs, f).reshape(len(v), -1)[v]
+           for f in ("ptrs", "delays", "hard_bits")}
+    whole = tracker.make_tracker(cfg, n_real,
+                                 max_det=n_real // block + 2)(x[:n_real])
+    nb = int(whole.count)
+    nd_bits = cfg.synch_dat[1] * cfg.num_data_bins * 2
+    if len(got["ptrs"]) != nb or not torch.equal(
+            got["ptrs"][:, 0], whole.ptrs[:nb]) or not torch.equal(
+            got["delays"][:, 0], whole.delays[:nb]) or not torch.equal(
+            got["hard_bits"].reshape(-1), whole.hard_bits[:nb * nd_bits]):
+        raise AssertionError(f"{cell}: chunk by chunk ({len(got['ptrs'])} "
+                             f"detections) vs track_frame on the whole "
+                             f"buffer ({nb})")
+    before = gap_at // block - 1
+    sent = bits.reshape(-1)[:before * nd_bits]
+    wrong = int((whole.hard_bits[:before * nd_bits] != sent).sum())
+    step = torch.diff((whole.ptrs + whole.delays)[:nb])
+    off = torch.nonzero(step != block).reshape(-1).tolist()
+    if wrong or nb < before or (off and off[0] < before - 1):
+        raise AssertionError(f"{cell}: {nb} detections, the first off the "
+                             f"block cadence after detection {off[:1]}, "
+                             f"{wrong} of the bits before the gap differ "
+                             f"from the sent bits")
+    srx = rt.TrackerStreamingRx(cfg, chunk)
+    same_outs(stack_outs([srx.push(c) for c in chunks]), many,
+              f"{cell}: pushes vs push_many")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srx.push(chunks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        trx = rt.TrackerStreamingRx(cfg, chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trx.push_many(chunks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = sorted(times)[len(times) // 2]
+    print(f"{cell}: {k} chunks of {chunk} (+ {steps - k} flush), {rx.slots} "
+          f"steps a chunk, launches {counts}; chunked == track_frame on the "
+          f"whole buffer ({nb} detections, the first off the block "
+          f"cadence after detection {off[:2]}), push_many == pushes, the "
+          f"{before} detections before the gap on cadence and their "
+          f"{before * nd_bits} bits == the sent bits, a chunk "
+          f"step ran under sync debug mode \"error\"; {n_real / dt / 1e6:.3f} "
+          f"Msamples/s, {dt * 1e3 / k:.3f} ms a chunk step (rounds "
+          f"{', '.join(f'{t * 1e3 / k:.3f}' for t in times)}) on {gpu}")
+
+
+def file_check(dev) -> None:
+    """The file CLIs as a user calls them, with no --device: tx_file
+    --generate writes a frame; faded, it goes through ofdm_chain
+    --tx-pickle / --bits-pickle and --stream with the loopback's lock,
+    delay and BER; rx_file --case 7 --stream on a capture made on the card
+    finds what the whole-buffer receiver finds."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.cli import ofdm_chain, rx_file, tx_file
+    from lte_gnu_radio_code_tpu_torch.io import pickles
+    from lte_gnu_radio_code_tpu_torch.models import chain
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        kernels.reset_launch_counts()
+        gen = tx_file.main([str(tmp / "tx.pckl"), "--generate", "--json"])
+        cfg = params.config_from_profile(params.SDR_PROFILES[0])
+        tx = pickles.load_pickle_iq(tmp / "tx.pckl").ravel()
+        faded = np.convolve(tx, chain.loopback_taps(cfg))
+        pickles.save_pickle_iq(tmp / "rx.pckl", faded[None])
+        pickles.save_pickle_iq(tmp / "bits.pckl", np.random.default_rng(
+            0).integers(0, 2, cfg.num_bits, dtype=np.int32)[None])
+        files = ["--tx-pickle", str(tmp / "rx.pckl"), "--bits-pickle",
+                 str(tmp / "bits.pckl"), "--json"]
+        one = ofdm_chain.main(files)
+        streamed = ofdm_chain.main(files + ["--stream", "960", "--repeat",
+                                            "2"])
+        counts = kernels.launch_counts()
+        want = {"found": True, "lock_ptr": 16, "delay_idx": 1, "ber": 0.0}
+        if (gen["samples"] != cfg.frame_len or one != want or
+                streamed["detections"] != 2 * cfg.num_patterns or
+                streamed["ber"] != 0.0 or counts["ofdm_mod"] != 1 or
+                counts["sync_search"] < 2 or counts["equalize"] < 2):
+            raise AssertionError(f"file CLIs: tx_file {gen}, ofdm_chain "
+                                 f"--tx-pickle {one} (expected {want}), "
+                                 f"--stream {streamed}, launches {counts}")
+        print(f"tx_file --generate -> {gen['samples']} samples; "
+              f"ofdm_chain --tx-pickle {one}; --stream 960 --repeat 2 "
+              f"{streamed}; launches {counts}")
+
+        c7 = params.config_from_case(params.CFO_CASES, 7)
+        x, _ = make_streams(c7, 1, 8 * c7.frame_len, dev)
+        pickles.save_pickle_iq(tmp / "c7.pckl", x.cpu().numpy())
+        whole = rx_file.main([str(tmp / "c7.pckl"), "--case", "7", "--json",
+                              "--max-det", "1000"])
+        streamed = rx_file.main([str(tmp / "c7.pckl"), "--case", "7",
+                                 "--stream", str(2048 * c7.stride),
+                                 "--json", "--max-det", "1000"])
+        blocks = 8 * c7.num_patterns
+        if streamed != whole or whole["detections"] < blocks - 1:
+            raise AssertionError(f"rx_file --case 7: whole buffer "
+                                 f"{whole['detections']} detections, "
+                                 f"--stream {streamed['detections']} (of "
+                                 f"{blocks} blocks)")
+        print(f"rx_file --case 7 on a capture of {blocks} blocks made on the "
+              f"card: {whole['detections']} detections, --stream == whole "
+              "buffer")
+
+
 def split_check(dev) -> None:
     """The split RX on the card by default: stage A (K4) and stage B (K2)
     on one GOLDEN64 frame give the monolithic rx_frame's lock, delay and
@@ -1314,7 +1720,7 @@ def split_check(dev) -> None:
           f"launches {counts}")
 
 
-def cli_check() -> None:
+def cli_check(dev) -> None:
     """The loopback entry point as a user calls it, with no --device: one
     GOLDEN64 frame through the four kernels on the card."""
     from lte_gnu_radio_code_tpu_torch import kernels
@@ -1324,7 +1730,8 @@ def cli_check() -> None:
     out = ofdm_chain.main(["--json"])
     counts = kernels.launch_counts()
     want = {"found": True, "lock_ptr": 16, "delay_idx": 1, "ber": 0.0}
-    if out != want or counts != dict.fromkeys(kernels.KERNEL_MODULES, 1):
+    if out != want or counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 1),
+                                 "tracker": 0}:
         raise AssertionError(f"cli.ofdm_chain: {out} (expected {want}), "
                              f"launches {counts}")
     print(f"cli.ofdm_chain on the card: {out}, launches {counts}")
@@ -1338,7 +1745,9 @@ def cli_check() -> None:
                            "--snrs", "12", "100", "--frames", "4"])
     counts = kernels.launch_counts()
     want = {"found": True, "lock_ptr": 16, "delay_idx": 0, "ber": 0.0}
-    if (out != want or counts != dict.fromkeys(kernels.KERNEL_MODULES, 3) or
+    if (out != want or
+            counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 3),
+                       "tracker": 0} or
             not 0.01 < rows[0]["ber"] < 0.3 or rows[1]["ber"] != 0.0):
         raise AssertionError(f"cli.ofdm_chain on tx16qam.json: {out} "
                              f"(expected {want}); cli.ber_sweep: {rows}; "
@@ -1346,6 +1755,7 @@ def cli_check() -> None:
     print(f"cli.ofdm_chain --config configs/tx16qam.json on the card: {out}; "
           f"cli.ber_sweep --config configs/qam64_sweep.json: {rows}; "
           f"launches {counts}")
+    file_check(dev)
 
 
 def kernel_entry(name, cell, launches, c) -> dict:
@@ -1382,7 +1792,7 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     route_cross_checks(dev)
-    cli_check()
+    cli_check(dev)
     entries = []
     for cfg_name, batch in CELLS:
         cfg = getattr(params, cfg_name)
@@ -1413,6 +1823,8 @@ def main() -> int:
         if check is not None:
             entries.append(kernel_entry("equalize", cell, launches, check))
     split_check(dev)
+    entries += tracker_run(dev, gpu)
+    tracker_stream_run(dev, gpu)
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """Wrappers of the port's hand-written CUDA kernels, each beside its plain
 PyTorch twin, and their launch counts.
 
-K1 ``ofdm_mod``, K2 ``equalize``, K3 ``channel_conv``, K4 ``sync_search``.
+K1 ``ofdm_mod``, K2 ``equalize``, K3 ``channel_conv``, K4 ``sync_search``,
+and ``tracker`` (the tracker's step loop, which has no Pallas kernel).
 Each module keeps ``launches``, a plain int that its wrapper raises by one
 per kernel launch (the twin never counts).
 """
 
-KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search")
+KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
+                  "tracker")
 
 
 def _modules():

@@ -37,6 +37,8 @@ SIGNATURES = {
                         _P),
     "sync_search_direct": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P),
+    "tracker_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

@@ -39,6 +39,7 @@ class BatchChainResult(NamedTuple):
     hard_bits: torch.Tensor      # [B, num_bits]
     lock_ptr: torch.Tensor       # [B]
     delay_idx: torch.Tensor      # [B]
+    phasors: torch.Tensor        # [B, num_data_symb, num_data_bins]
 
 
 def _ber(hard: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -107,7 +108,7 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
     r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns,
                                plain=plain)
     return BatchChainResult(_ber(r.hard_bits, bits), r.found, r.hard_bits,
-                            r.lock_ptr, r.delay_idx)
+                            r.lock_ptr, r.delay_idx, r.phasors)
 
 
 def ber_sweep(cfg: OFDMConfig, snr_dbs, seeds=range(4), device=None

@@ -39,6 +39,7 @@ class BatchRxResult(NamedTuple):
     found: torch.Tensor          # [B]
     lock_ptr: torch.Tensor       # [B]
     delay_idx: torch.Tensor      # [B]
+    phasors: torch.Tensor        # [B, num_data_symb, num_data_bins]
 
 
 def demap(cfg: OFDMConfig, phasors: torch.Tensor, h_data: torch.Tensor):
@@ -149,8 +150,8 @@ def rx_frames_batch(cfg: OFDMConfig, xs: torch.Tensor, n_trials: int,
             equalize.demod_windows_plain if plain else equalize.demod_windows)
         h_data = chan_full[..., sync._bins_on(xs.device, cfg.nfft,
                                               cfg.num_data_bins)]
-    _, hard, _, _ = demap(cfg, ph, h_data)
-    return BatchRxResult(hard, found, ptr, delay_idx)
+    ph, hard, _, _ = demap(cfg, ph, h_data)
+    return BatchRxResult(hard, found, ptr, delay_idx, ph)
 
 
 def plan_rx(cfg: OFDMConfig, n_samples: int) -> tuple[int, int]:

@@ -13,8 +13,11 @@ stream (``hist_len_for``, ``StreamState``, ``ChunkOut``, ``init_state``,
 ``legacy_stream_step``, ``LegacyStreamingRx``), with ``push``,
 ``push_many``, ``finish`` and npz checkpoints whose keys are the JAX
 receivers', so a checkpoint written by either package resumes in the
-other.  The receivers serve every modulation the demap knows
-(``models/stream_rx.py:hard_decide``).  The tracker stream waits.
+other; and the streaming tracker (``tracker_lag``, ``TrackStreamState``,
+``TrackChunkOut``, ``track_stream_init``, ``track_stream_step``,
+``TrackerStreamingRx``, with ``push``, ``push_many`` and ``finish``; it has
+no checkpoints, as the JAX one has none).  The receivers serve every
+modulation the demap knows (``models/stream_rx.py:hard_decide``).
 
 A step keeps static shapes (fixed [det_max] / [kmax] tables with a
 ``valid`` mask), holds its carry in device tensors and never waits for the
@@ -22,7 +25,8 @@ host: no ``.item()``, no boolean-mask indexing, no tensor made from a
 Python number on the way.  That is what lets a step be captured in a CUDA
 graph.  The batch receiver's step carries an explicit leading stream axis:
 one sync search (K4) and one demod (K2) launch a chunk step, however many
-streams there are.
+streams there are.  The tracker's step is one launch of its step loop
+(``kernels/tracker.py``) and one of K2.
 
 The receivers run on the CUDA device unless the caller passes a ``device``
 (``"cpu"`` runs the kernels' plain versions); where there is no CUDA device
@@ -39,7 +43,8 @@ import numpy as np
 import torch
 
 from ..kernels import equalize, sync_search
-from ..models import legacy_rx, stream_rx
+from ..kernels import tracker as tracker_kernel
+from ..models import legacy_rx, stream_rx, tracker
 from ..ops import cfo as cfo_ops
 from ..ops import fast_sync, sync
 from ..utils.device import as_samples, kernel_default, resolve_device
@@ -309,6 +314,28 @@ def _push_many(rx, chunks):
                          f"[K, {', '.join(map(str, rx.chunk_shape))}]")
     outs = [rx.push(c) for c in chunks]
     return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+
+
+def push_signal(rx, sig: np.ndarray, fields) -> tuple[int, dict]:
+    """A whole single-stream signal through a receiver, as a file source
+    feeds it: the full chunks in one ``push_many``, the zero-padded last
+    one with its real sample count, then ``finish()``.  Returns (chunk
+    steps, {field: the valid detections' values, on the host})."""
+    chunk = rx.chunk_len
+    n_full = len(sig) // chunk
+    buf = np.zeros(-(-len(sig) // chunk) * chunk, np.complex64)
+    buf[:len(sig)] = sig
+    outs = []
+    if n_full:
+        many = rx.push_many(buf[:n_full * chunk].reshape(n_full, chunk))
+        outs += [type(many)(*(f[j] for f in many)) for j in range(n_full)]
+    for i in range(n_full * chunk, len(buf), chunk):
+        outs.append(rx.push(buf[i:i + chunk], n_real=len(sig) - i))
+    outs += rx.finish()
+    valid = [o.valid.cpu().numpy() for o in outs]
+    return len(outs), {name: np.concatenate(
+        [getattr(o, name).cpu().numpy()[v] for o, v in zip(outs, valid)])
+        for name in fields}
 
 
 def _save_npz(path, state, complex_fields: dict) -> None:
@@ -594,3 +621,131 @@ class LegacyStreamingRx(ReacqStreamingRx):
             legacy_stream_step, cfg, det_max=self.det_max,
             bank=cfo_ops.bank_on(cfg, fo_range, self.device), dsss=dsss,
             demod_path=kernel_default(self.device, demod_path))
+
+
+# ---------------------------------------------------------------------------
+# Streaming tracker (the GR tracker block's work() semantics)
+# ---------------------------------------------------------------------------
+#
+# The tracker block carries its pointer state machine across work() calls:
+# search by stride, five nominal advances, then least-squares drift
+# prediction.  Here the batch tracker's step loop (kernels/tracker.py:
+# track_scan: one kernel launch a chunk on the card) runs over ext = [hist,
+# chunk] with the carry in the stream state; fire-or-stall steps make the
+# chunked run accept exactly the whole buffer's detections.
+
+
+def tracker_lag(cfg: OFDMConfig) -> int:
+    """History: the pattern reach plus pointer-regression slack (the lstsq
+    prediction can step back by ~cp/4; give it 2*cp)."""
+    return cfg.pattern_len * cfg.rx_b_len + cfg.nfft + 2 * cfg.cp_len
+
+
+class TrackStreamState(NamedTuple):
+    hist: torch.Tensor          # [lag] trailing samples
+    base: torch.Tensor          # global index of the next chunk's start
+    real_end: torch.Tensor      # global count of real (non-flush) samples
+    carry: tuple                # models/tracker.py:TrackerCarry, B = 1
+
+
+class TrackChunkOut(NamedTuple):
+    ptrs: torch.Tensor          # [det_max] global detection pointers, or -1
+    delays: torch.Tensor        # [det_max]
+    peaks: torch.Tensor         # [det_max]
+    valid: torch.Tensor         # [det_max] bool
+    chans: torch.Tensor         # [det_max, nfft]
+    phasors: torch.Tensor       # [det_max, nd, num_data_bins]
+    hard_bits: torch.Tensor     # [det_max, nd, num_data_bins*bits_per_bin]
+
+
+def track_stream_init(cfg: OFDMConfig, device="cpu") -> TrackStreamState:
+    i32 = functools.partial(_scalar, 0, torch.int32, device)
+    return TrackStreamState(
+        hist=torch.zeros(tracker_lag(cfg), dtype=torch.complex64,
+                         device=device),
+        base=i32(), real_end=i32(),
+        carry=tracker.tracker_init_carry(1, device))
+
+
+def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
+                      chunk: torch.Tensor, n_real, slots: int, det_max: int,
+                      demod_path: str | None = None
+                      ) -> tuple[TrackStreamState, TrackChunkOut]:
+    """One chunk of the streaming tracker (``stream.py:track_stream_step``):
+    ``slots`` tracker steps over ext = [hist, chunk] (one ``track_scan``:
+    one kernel launch on the card), the accepted ones
+    compacted into a [det_max] table, each demodulated
+    (``models/tracker.py:track_phasors``, K2 with ``demod_path="kernel"``)
+    and decided (``stream_rx.hard_decide``).  A step fires only where its
+    synch windows lie inside the real samples and its pattern's data span
+    inside ext, so a pointer that does not fit yet is retried next chunk.
+    Static shapes, the carry on the device, nothing waits for the host."""
+    chunk_len = chunk.shape[-1]
+    lag = tracker_lag(cfg)
+    ext = torch.cat([state.hist, chunk])
+    ext_start = state.base - lag                 # global coordinate of ext[0]
+    ext_end = state.base + chunk_len
+    real_end = state.real_end + n_real
+    m0, nd = cfg.m_synch, cfg.synch_dat[1]
+    fire_limit = torch.minimum(
+        real_end, ext_end - (nd - m0 + 1) * cfg.rx_b_len + 1)
+
+    carry, (acc, ptrs_all, dels_all, peaks_all, h_all) = \
+        tracker_kernel.track_scan(cfg, ext[None], ext_start, fire_limit,
+                                  state.carry, slots)
+
+    (g_ptrs, delays, peaks), count = sync.emit_slots(
+        acc, (ptrs_all, dels_all, peaks_all), det_max)
+    chans = tracker.emit_channels(acc, h_all, det_max)
+    valid = torch.arange(det_max, device=chunk.device) < count[:, None]
+    ptrs_local = torch.where(valid, g_ptrs - ext_start, 0)
+    phasors = tracker.track_phasors(cfg, ext[None], ptrs_local, delays, valid,
+                                    real_end - ext_start, chans, demod_path)
+
+    new_state = TrackStreamState(
+        hist=ext[-lag:].clone(), base=state.base + chunk_len,
+        real_end=real_end, carry=carry)
+    out = TrackChunkOut(
+        ptrs=torch.where(valid, g_ptrs, -1)[0], delays=delays[0],
+        peaks=peaks[0], valid=valid[0], chans=chans[0], phasors=phasors[0],
+        hard_bits=stream_rx.hard_decide(cfg, phasors[0]))
+    return new_state, out
+
+
+class TrackerStreamingRx:
+    """Host-side front end of the streaming tracker, one stream: push(chunk)
+    is one call of the tracker block's work(), finish() flushes the history
+    with zero chunks.  No checkpoints: the JAX receiver has none."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, device=None):
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.chunk_shape = (chunk_len,)
+        self.device = resolve_device(device)
+        self.slots = chunk_len // tracker.tracker_stride(cfg) + 4
+        self.det_max = chunk_len // (2 * cfg.cp_len + cfg.nfft) + 2
+        self.state = track_stream_init(cfg, self.device)
+        self._step = functools.partial(
+            track_stream_step, cfg, slots=self.slots, det_max=self.det_max,
+            demod_path=kernel_default(self.device, None))
+
+    def push(self, chunk, n_real: int | None = None) -> TrackChunkOut:
+        chunk = as_samples(chunk, self.device)
+        if chunk.shape != self.chunk_shape:
+            raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
+                             f"[{self.chunk_len}]")
+        self.state, out = self._step(
+            self.state, chunk, self.chunk_len if n_real is None else n_real)
+        return out
+
+    def push_many(self, chunks) -> TrackChunkOut:
+        """K chunk steps in one call; see :func:`_push_many`."""
+        return _push_many(self, chunks)
+
+    def finish(self) -> list[TrackChunkOut]:
+        """Zero chunks until the history and one chunk more have passed, so
+        that every pointer inside the real samples resolves."""
+        zeros = torch.zeros(self.chunk_len, dtype=torch.complex64,
+                            device=self.device)
+        n = -(-(tracker_lag(self.cfg) + self.chunk_len) // self.chunk_len)
+        return [self.push(zeros, n_real=0) for _ in range(n)]

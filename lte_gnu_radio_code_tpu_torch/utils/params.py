@@ -1,12 +1,14 @@
 """OFDM numerology for the PyTorch port.
 
-The subset of ``lte_gnu_radio_code_tpu/utils/params.py`` that the ported
-receivers need: :class:`OFDMConfig` with the same fields and derived values,
-:func:`used_bins`, :func:`pilot_bin_plan`, the legacy CFO/DSSS case tables
-with :func:`config_from_case`, and the three shipped configurations.  It is
-a copy, not an import, so that the port loads nothing of the JAX package;
-``tests/test_torch_tables.py`` pins every field, derived value, pilot plan
-and case equal to the JAX module's.
+A copy of ``lte_gnu_radio_code_tpu/utils/params.py``: :class:`OFDMConfig`
+with the same fields and derived values, :func:`used_bins`,
+:func:`pilot_bin_plan`, :func:`derive_numerology`,
+:func:`config_from_profile` with ``SDR_PROFILES``, :class:`PLSConfig` with
+``PLS_PROFILES``, the legacy CFO/DSSS case tables with
+:func:`config_from_case`, and the three shipped configurations.  It is a
+copy, not an import, so that the port loads nothing of the JAX package;
+``tests/test_torch_tables.py`` pins every field, derived value, pilot plan,
+profile and case equal to the JAX module's.
 """
 
 from __future__ import annotations
@@ -167,6 +169,186 @@ def pilot_bin_plan(cfg: OFDMConfig):
 
     return (tuple(int(v) for v in pilots), wrap(pilots),
             tuple(int(v) for v in data_only), wrap(data_only))
+
+
+def derive_numerology(channel_band: float, bin_spacing: float,
+                      cp_type: str = "Normal") -> Tuple[int, int, int, float]:
+    """(NFFT, cp_len, num_data_bins, fs) from bandwidth and bin spacing
+    (``utils/params.py:derive_numerology``).
+
+    Reference: SystemModel.py:34-40 (NFFT = 2^ceil(log2(band/spacing)),
+    num_synch_bins = NFFT-2, fs = spacing*NFFT), SDRScript.py:57-58
+    (num_bins1 = 4*floor(num_bins0/4) for MIMO alignment) and
+    SDRScript.py:96-99 (CP Normal = NFFT/4, Extended = NFFT/4 + NFFT/8).
+    """
+    num_bins0 = math.floor(channel_band / bin_spacing)
+    nfft = 2 ** math.ceil(math.log2(round(channel_band / bin_spacing)))
+    num_data_bins = 4 * (num_bins0 // 4)
+    if cp_type == "Normal":
+        cp_len = round(nfft / 4)
+    elif cp_type == "Extended":
+        cp_len = round(nfft / 4 + nfft / 8)
+    else:
+        raise ValueError(f"Wrong CP Type {cp_type!r}")
+    fs = bin_spacing * nfft
+    return nfft, cp_len, num_data_bins, fs
+
+
+def config_from_profile(profile: dict, num_symbols: int | None = None,
+                        snr_db: float | None = None) -> OFDMConfig:
+    """Build an :class:`OFDMConfig` from an SDR profile dict (SDRScript.py:14-41)."""
+    nfft, cp_len, num_data_bins, _fs = derive_numerology(
+        profile["channel_band"], profile["bin_spacing"], profile["CP_type"])
+    synch_dat = tuple(profile.get("synch_data", (1, 3)))
+    nsym = num_symbols if num_symbols is not None else profile["num_symbols"][0]
+    pattern = sum(synch_dat)
+    nsym = int(math.ceil(nsym / pattern)) * pattern
+    return OFDMConfig(
+        nfft=nfft,
+        cp_len=cp_len,
+        num_ofdm_symb=nsym,
+        synch_dat=synch_dat,
+        num_data_bins=num_data_bins,
+        num_synch_bins=nfft - 2,
+        channel=profile["wireless_channel"],
+        snr_db=snr_db if snr_db is not None else profile["SNR"],
+        num_ant_txrx=profile["num_ant_txrx"],
+        bin_spacing=profile["bin_spacing"],
+        channel_band=profile["channel_band"],
+    ).validate()
+
+
+# ---------------------------------------------------------------------------
+# The reference's SDR and PLS profiles
+# ---------------------------------------------------------------------------
+
+SDR_PROFILES = {
+    0: {  # '4G5GSISO-TU' — TEST/GNU_RADIO_OFFLINE/TXRX_Parameters.py:1-14
+        "system_scenario": "4G5GSISO-TU",
+        "wireless_channel": "Fading",
+        "channel_band": 0.97 * 960e3,
+        "bin_spacing": 15e3,
+        "channel_profile": "LTE-TU",
+        "CP_type": "Normal",
+        "num_ant_txrx": 1,
+        "param_est": "Estimated",
+        "MIMO_method": "SpMult",
+        "SNR": 100,
+        "ebno_db": [100] * 9,
+        "num_symbols": [240] + [1000] * 8,
+        "stream_size": 1,
+        "synch_data": (1, 3),
+    },
+    1: {  # 'WIFIMIMOSM-A' — SDRScript.py:28-41
+        "system_scenario": "WIFIMIMOSM-A",
+        "wireless_channel": "Fading",
+        "channel_band": 0.9 * 20e6,
+        "bin_spacing": 312.5e3,
+        "channel_profile": "Indoor A",
+        "CP_type": "Extended",
+        "num_ant_txrx": 2,
+        "param_est": "Ideal",
+        "MIMO_method": "SpMult",
+        "SNR": 50,
+        "ebno_db": [6, 7, 8, 9, 10, 14, 16, 20, 24],
+        "num_symbols": [12] * 9,
+        "stream_size": 2,
+        "synch_data": (1, 3),
+    },
+}
+
+PLS_PROFILES = {
+    0: {  # pls_aio.py:20-26
+        "bandwidth": 960e3,
+        "bin_spacing": 15e3,
+        "num_ant": 2,
+        "bit_codebook": 1,
+        "synch_data_pattern": (2, 1),
+    },
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class PLSConfig:
+    """Physical-layer-security (MIMO key exchange) parameters.
+
+    Mirrors TEST/GNU_RADIO_OFFLINE/PLSParameters.py:5-103 and the embedded
+    profile of pls_aio.py:20-61.  Note the PLS chain uses a *different* bin
+    layout from the OFDM chains: bins sit around the FFT-vector index
+    ``nfft/2`` (pls_aio.py:44-52), not around DC index 0.
+    """
+
+    bandwidth: float = 960e3
+    bin_spacing: float = 15e3
+    num_ant: int = 2
+    bit_codebook: int = 1              # bits per codebook index
+    synch_data_pattern: Tuple[int, int] = (2, 1)
+    pvt_info_len: int = 8              # secret key length in bits
+    num_data_bins: int = 4
+    zc_primes: Tuple[int, ...] = (23, 41)   # per-synch-symbol alternation
+
+    @property
+    def nfft(self) -> int:
+        return int(self.bandwidth // self.bin_spacing)
+
+    @property
+    def cp_len(self) -> int:
+        return int(0.25 * self.nfft)
+
+    @property
+    def symb_len(self) -> int:
+        return self.nfft + self.cp_len
+
+    @property
+    def num_synch_bins(self) -> int:
+        return self.nfft - 2
+
+    @property
+    def subband_size(self) -> int:
+        return self.num_ant
+
+    @property
+    def num_subbands(self) -> int:
+        return self.num_data_bins // self.subband_size
+
+    @property
+    def key_len(self) -> int:
+        return self.num_subbands * self.bit_codebook
+
+    @property
+    def num_data_symb(self) -> int:
+        # pls_aio.py:63 (with log2(len(codebook)) == bit_codebook)
+        return int(math.ceil(self.pvt_info_len /
+                             (self.num_subbands * self.bit_codebook)))
+
+    @property
+    def num_synch_symb(self) -> int:
+        return self.synch_data_pattern[0] * self.num_data_symb
+
+    @property
+    def total_num_symb(self) -> int:
+        return self.num_synch_symb + self.num_data_symb
+
+    @property
+    def frame_len(self) -> int:
+        return self.total_num_symb * self.symb_len
+
+    def used_data_bins(self) -> Tuple[int, ...]:
+        """Bins around FFT index nfft/2, DC-index excluded (pls_aio.py:44-48)."""
+        dc = self.nfft // 2
+        neg = list(range(dc - self.num_data_bins // 2, dc))
+        pos = list(range(dc + 1, dc + self.num_data_bins // 2 + 1))
+        return tuple(neg + pos)
+
+    def used_synch_bins(self) -> Tuple[int, ...]:
+        dc = self.nfft // 2
+        neg = list(range(dc - self.num_synch_bins // 2, dc))
+        pos = list(range(dc + 1, dc + self.num_synch_bins // 2 + 1))
+        return tuple(neg + pos)
+
+    def symbol_pattern(self) -> Tuple[int, ...]:
+        base = (0,) * self.synch_data_pattern[0] + (1,) * self.synch_data_pattern[1]
+        return base * self.num_data_symb
 
 
 def _case(num_ofdm_symb, fs, nfft, synch_dat, num_data_bins, dsss=1):

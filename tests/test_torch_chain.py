@@ -131,8 +131,11 @@ def test_plain_chain_matches_kernel_chain():
     bits, noise = _inputs(cfg, 2, seed=13)
     a = _port_chain(cfg, bits, noise)
     b = _port_chain(cfg, bits, noise, plain=True)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    for name, x, y in zip(a._fields, a, b):
+        if name == "phasors":       # K1's and K2's twins round differently
+            torch.testing.assert_close(x, y, atol=2e-4, rtol=0)
+        else:
+            assert torch.equal(x, y), name
 
 
 def test_make_chain_loopback_golden64():

@@ -307,7 +307,8 @@ def test_chain_batch_through_kernels(dev):
     kernels.reset_launch_counts()
     r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
     counts = kernels.launch_counts()
-    assert counts == dict.fromkeys(kernels.KERNEL_MODULES, 1), counts
+    assert counts == {**dict.fromkeys(kernels.KERNEL_MODULES, 1),
+                      "tracker": 0}, counts
     assert bool(r.found.all()) and float(r.ber.max()) == 0.0
     p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
                           plain=True)
@@ -434,7 +435,8 @@ def test_cli_loopback_runs_on_the_card(dev):
     out = ofdm_chain.main(["--json"])
     assert out == {"found": True, "lock_ptr": 16, "delay_idx": 1,
                    "ber": 0.0}
-    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 1)
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}
 
 
 PILOT_CFGS = pytest.mark.parametrize("cfg", [
@@ -495,7 +497,8 @@ def test_qam_and_pilot_chain_kernel_path_equals_plain(dev, cfg):
     h = chain.loopback_taps(cfg)
     kernels.reset_launch_counts()
     r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
-    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_MODULES, 1)
+    assert kernels.launch_counts() == {
+        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}
     assert bool(r.found.all()) and float(r.ber.max()) == 0.0
     p = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
                           plain=True)
@@ -649,3 +652,106 @@ def test_library_builds_from_sources(dev):
     lib = _cuda.library()
     assert _cuda.library_path().exists()
     assert lib.cuda_error_string(0).decode() == "no error"
+
+
+TRACKER_CFGS = pytest.mark.parametrize("cfg", [
+    GOLDEN64, dataclasses.replace(G24, synch_dat=(2, 2)),
+    dataclasses.replace(G24, nfft=128, cp_len=32, num_data_bins=120,
+                        num_synch_bins=126)],
+    ids=["golden64", "m_synch2", "nfft128"])
+
+
+@TRACKER_CFGS
+def test_track_scan_kernel_equals_plain(dev, cfg):
+    """The tracker's step-loop kernel against its plain twin on three
+    streams: every carry field (float bits too), accept, pointer and delay
+    at every step equal, peaks within 1e-5 of their size, channel rows
+    within 1e-5; track_frame on the card (one tracker and one K2 launch) ==
+    the plain path (scan="plain", "dft")."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    bits, xs = _frames(cfg, dev, 3, seed=40)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    carry = tracker.tracker_init_carry(3, dev)
+    kernels.reset_launch_counts()
+    ck, yk = ktrk.track_scan(cfg, xs, 0, n, carry, steps)
+    assert kernels.launch_counts()["tracker"] == 1
+    cp_, yp = ktrk.track_scan_plain(cfg, xs, 0, n, carry, steps)
+    for a, b in zip(ck, cp_):
+        assert torch.equal(a, b)
+    for a, b in zip(yk[:3], yp[:3]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(yk[3], yp[3], rtol=1e-5, atol=0)
+    torch.testing.assert_close(yk[4], yp[4], atol=1e-5, rtol=0)
+    kernels.reset_launch_counts()
+    r = tracker.make_tracker(cfg, n)(xs)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "tracker": 1, "equalize": 1}
+    p = tracker.make_tracker(cfg, n, scan="plain", demod_path="dft")(xs)
+    for name in ("count", "ptrs", "delays", "hard_bits"):
+        assert torch.equal(getattr(r, name), getattr(p, name)), name
+    torch.testing.assert_close(r.chan_freq, p.chan_freq, atol=1e-5, rtol=0)
+    torch.testing.assert_close(r.phasors, p.phasors, atol=2e-4, rtol=0)
+    assert bool((r.count == cfg.num_patterns).all())
+    if cfg.m_synch == 1:
+        assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
+
+
+def test_tracker_kernel_shape_rule(dev):
+    """An nfft that is not a power of two, no synch symbol, or a carry of
+    another type raises ValueError on a CUDA tensor."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    x = _cplx(dev, 41, 1, 4000)
+    carry = tracker.tracker_init_carry(1, dev)
+    for bad in (dataclasses.replace(G24, nfft=96, num_synch_bins=94,
+                                    num_data_bins=90),
+                dataclasses.replace(G24, synch_dat=(0, 3))):
+        with pytest.raises(ValueError):
+            ktrk.track_scan(bad, x, 0, 4000, carry, 8)
+    with pytest.raises(ValueError):
+        ktrk.track_scan(G24, x, 0, 4000, carry._replace(
+            b=carry.b.double()), 8)
+
+
+def test_tracker_stream_on_the_card(dev):
+    """TrackerStreamingRx with no device: one tracker and one K2 launch a
+    chunk step, chunked == track_frame on the whole buffer, push_many ==
+    pushes, a step under sync debug mode "error"."""
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    cfg = GOLDEN64
+    bits, xs = _frames(cfg, dev, 2, seed=42)
+    x = xs[:, :cfg.frame_len].reshape(-1)
+    chunk = 2400
+    k = len(x) // chunk
+    rx = rt.TrackerStreamingRx(cfg, chunk)
+    assert rx.device.type == "cuda"
+    kernels.reset_launch_counts()
+    many = rx.push_many(x[:k * chunk].reshape(k, chunk))
+    tail = rx.finish()
+    steps = k + len(tail)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "tracker": steps, "equalize": steps}
+    outs = [type(many)(*(f[i] for f in many)) for i in range(k)] + tail
+    v = torch.cat([o.valid for o in outs])
+    ptrs = torch.cat([o.ptrs for o in outs])[v]
+    hard = torch.cat([o.hard_bits for o in outs])[v].reshape(-1)
+    n = k * chunk
+    whole = tracker.make_tracker(cfg, n, max_det=n // 320 + 2)(x[:n])
+    nb = int(whole.count)
+    assert len(ptrs) == nb >= 2 * cfg.num_patterns - 2
+    assert torch.equal(ptrs, whole.ptrs[:nb])
+    assert torch.equal(hard, whole.hard_bits[:len(hard)])
+    assert torch.equal(hard[:cfg.num_bits], bits[0])
+    seq = rt.TrackerStreamingRx(cfg, chunk)
+    for i, c in enumerate(x[:k * chunk].reshape(k, chunk)):
+        out = seq.push(c)
+        for name in out._fields:
+            assert torch.equal(getattr(out, name), getattr(many, name)[i])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seq.push(x[:chunk])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -147,3 +147,36 @@ def test_pilot_qam_and_legacy_tables_equal_jax(grid):
     np.testing.assert_allclose(h[left] + w * (h[left + 1] - h[left]),
                                np.interp(d_signed, p_signed, h), atol=1e-6)
     assert "pilot_values" not in port_tables(port_cfg(jparams.GOLDEN64))
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_profiles_equal_jax(case):
+    """The SDR profiles, the numerology derived from them and the
+    configurations they give, field by field."""
+    assert tparams.SDR_PROFILES == jparams.SDR_PROFILES
+    prof = tparams.SDR_PROFILES[case]
+    args = (prof["channel_band"], prof["bin_spacing"], prof["CP_type"])
+    assert tparams.derive_numerology(*args) == \
+        jparams.derive_numerology(*args)
+    for kw in ({}, dict(num_symbols=48, snr_db=20.0)):
+        assert dataclasses.asdict(tparams.config_from_profile(prof, **kw)) \
+            == dataclasses.asdict(jparams.config_from_profile(prof, **kw))
+    with pytest.raises(ValueError):
+        tparams.derive_numerology(1e6, 15e3, "Short")
+
+
+def test_pls_config_equal_jax():
+    """PLSConfig with its default and the shipped profile: every field,
+    property and bin layout."""
+    assert tparams.PLS_PROFILES == jparams.PLS_PROFILES
+    props = ("nfft", "cp_len", "symb_len", "num_synch_bins", "subband_size",
+             "num_subbands", "key_len", "num_data_symb", "num_synch_symb",
+             "total_num_symb", "frame_len")
+    for kw in ({}, tparams.PLS_PROFILES[0], dict(pvt_info_len=16,
+                                                 num_data_bins=8)):
+        ours, ref = tparams.PLSConfig(**kw), jparams.PLSConfig(**kw)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        for name in props:
+            assert getattr(ours, name) == getattr(ref, name), name
+        for fn in ("used_data_bins", "used_synch_bins", "symbol_pattern"):
+            assert getattr(ours, fn)() == getattr(ref, fn)(), fn
