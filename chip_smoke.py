@@ -41,15 +41,19 @@ check also runs ``cli.ber_sweep`` and a pilot config, and the file CLIs
 (``file_check``: ``tx_file --generate``, ``ofdm_chain --tx-pickle`` and
 ``--stream``, ``rx_file --case 7 --stream``).
 
-Last, the tracker, whose step loop is a fifth kernel (``csrc/tracker.cu``,
-one block a stream looping over every step).  ``tracker_run``:
-``make_tracker`` on 16 GOLDEN64 buffers made on the card, 60 detections
-each with BER 0, one tracker and one K2 launch a call, kernel path == plain
-path, the kernel's scan == its plain twin in every carry field; the call,
-the kernel alone, and the plain step loop eager and replayed as one CUDA
-graph, timed.  ``tracker_stream_run``: ``TrackerStreamingRx`` on a
-16-frame stream with a gap: chunked == whole buffer, ``push_many`` ==
-pushes, no host synchronisation in a chunk step.
+Last, the tracker, whose step loop is a fifth kernel with two routes
+(``csrc/tracker.cu``: one warp a stream at nfft <= 128, one block a stream
+above).  ``tracker_run``: ``make_tracker`` on 16 GOLDEN64 buffers made on
+the card (the warp route), 60 detections each with BER 0, one tracker and
+one K2 launch a call, kernel path == plain path, both routes' scans == the
+plain twin in every carry field; the call, both routes' kernels and the
+plain loop eager, timed, and one call profiled; then the same at the batch
+that fills the card (8 streams on each SM), warp route == block route
+there.
+``tracker_block_run``: the block route on its own path, LTE1024 buffers.
+``tracker_stream_run``: ``TrackerStreamingRx`` on a 16-frame stream with a
+gap: chunked == whole buffer, ``push_many`` == pushes, no host
+synchronisation in a chunk step.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
@@ -121,6 +125,8 @@ SLEEP_CLOCK_HZ = 2.0e9        # above the H100's 1.98 GHz boost clock, so a
 # tracker: config, streams (the JAX bench's tracker batch,
 # bench_generations.py:173-200), SNR of its buffers (:175)
 TRACKER = ("GOLDEN64", 16, 80.0)
+TRACKER_LTE = ("LTE1024", 4, 80.0)    # the block route's main path
+TRACKER_FILL_PER_SM = 8       # streams on each SM in the card-filling batch
 TRACKER_STREAM_FRAMES = 16    # frames of the one tracker stream
 TRACKER_CHUNK_STRIDES = 2400  # tracker stream chunk: 2400 strides
 TRACKER_GAP = 3               # zero samples inserted into the stream
@@ -457,7 +463,6 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
 
     step(0)                                             # warm-up
     torch.cuda.synchronize()
-    routes0 = dict(sync_search.route_launches)
     times, queued = [], []        # seconds per CHAIN_REPS steps, each round
     for _ in range(CHAIN_ROUNDS):
         kernels.reset_launch_counts()
@@ -482,10 +487,9 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
                   "tracker": 0}:
         raise AssertionError(f"{cell}: launches {counts} over {CHAIN_REPS} "
                              "steps, expected one of each kernel a step")
-    routes = {k: v - routes0[k] for k, v in sync_search.route_launches.items()}
+    routes = dict(sync_search.route_launches)           # of the last round
     want = "direct" if cfg.stride == 1 else "fft"
-    if routes != {"fft": 0, "direct": 0,
-                  want: CHAIN_ROUNDS * counts["sync_search"]}:
+    if routes != {"fft": 0, "direct": 0, want: counts["sync_search"]}:
         raise AssertionError(f"{cell}: sync_search launches by route "
                              f"{routes}, expected all on {want!r}")
 
@@ -816,14 +820,13 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     rx.push(chunks[0])                                  # warm-up, discarded
     rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
     torch.cuda.synchronize()
-    routes0 = dict(sync_search.route_launches)
     kernels.reset_launch_counts()
     many = rx.push_many(chunks)
     state_k = rx.state                      # the carry after the K chunks
     outs = cat_outs([many, stack_outs(rx.finish())])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    routes = {r: v - routes0[r] for r, v in sync_search.route_launches.items()}
+    routes = dict(sync_search.route_launches)
     steps = outs.valid.shape[0]
     if (counts["sync_search"] != steps or counts["equalize"] != steps or
             routes != {"fft": 0, "direct": 0, want: steps}):
@@ -1370,14 +1373,150 @@ def same_track(a, b, what) -> tuple[float, float, float]:
     return errs
 
 
-def tracker_run(dev, gpu) -> list:
+def tracker_check(cfg, xs, steps, max_det, kind, ref, cell) -> float:
+    """The tracker kernel of route ``kind`` against a scan ``ref`` = (carry,
+    ys) on the same inputs: every carry field's bits, accept, pointer and
+    delay at every step equal; peaks within 1e-5 of their size and the
+    compacted channel table within 1e-5.  Returns the larger float error."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+
+    ck, yk = ktrk._launch(kind, cfg, xs, 0, xs.shape[1],
+                          tracker.tracker_init_carry(len(xs), xs.device),
+                          steps, max_det)
+    cp_, yp = ref
+    for nm, a, b in zip(("accept", "ptr", "delay"), yk, yp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cell}: the {kind} route's {nm} differs "
+                                 f"in {int((a != b).sum())} steps")
+    for nm, a, b in zip(tracker.TrackerCarry._fields, ck, cp_):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cell}: the {kind} route's carry {nm} "
+                                 "differs")
+    peak_err = float(((yk[3] - yp[3]).abs() /
+                      yp[3].abs().clamp_min(1.0)).max())
+    h_err = float((yk[4] - yp[4]).abs().max())
+    if peak_err > 1e-5 or h_err > 1e-5:
+        raise AssertionError(f"{cell}: the {kind} route's peaks within "
+                             f"{peak_err:.3e}, channel table within "
+                             f"{h_err:.3e} (allowed 1e-5)")
+    return max(peak_err, h_err)
+
+
+def tracker_work(cfg, xs, scan) -> tuple:
+    """What the tracker's scan (carry, ys) over xs needed, whichever kernel
+    ran it.  A step that does not fire leaves the carry as it was, so every
+    later step of the call repeats it: a stream computes its fired steps
+    (the loop count, from 0) and at most one more.  Returns (computed steps
+    [B]; bytes: the samples the computed steps' windows read, each once,
+    the carry read and written, the step outputs and the channel table
+    written; float32 operations of each computed step's cheapest form:
+    m_synch forward FFTs, the product q = X conj(zc) over the synch bins,
+    the power and normalisation, and the correlations at every delay as one
+    inverse FFT of q scattered to its bins, with the cp + 1 magnitudes)."""
+    carry, ys = scan
+    batch, n = xs.shape
+    steps = ys[0].shape[1]
+    fired = carry.loop_count.to(torch.int64)
+    computed = torch.clamp(fired + 1, max=steps)
+    span = (cfg.m_synch - 1) * cfg.rx_b_len + cfg.nfft
+    starts = torch.where(torch.arange(steps, device=xs.device) < fired[:, None],
+                         ys[1].to(torch.int64), 0)     # the frozen step: x[0]
+    idx = (starts[..., None] + torch.arange(span, device=xs.device)).clamp(
+        0, n - 1).reshape(batch, -1)
+    read = torch.zeros(batch, n, dtype=torch.bool, device=xs.device)
+    read.scatter_(1, idx, True)
+    nbytes = (int(read.sum()) * xs.element_size() +
+              2 * sum(c.nbytes for c in carry) + sum(y.nbytes for y in ys))
+    l_syn, d = cfg.m_synch * cfg.num_synch_bins, cfg.cp_len + 1
+    ops = int(computed.sum()) * (
+        (cfg.m_synch + 1) * 5.0 * cfg.nfft * np.log2(cfg.nfft) +
+        8.0 * l_syn + 16.0 * l_syn + 3.0 * d)
+    return computed, nbytes, ops
+
+
+def call_ms(fn) -> tuple[float, list]:
+    """Host ms of fn() ending in a synchronize: median of SERVING_ROUNDS."""
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+def tracker_main_path(cfg, xs, bits, kind, cell) -> tuple:
+    """``make_tracker`` on the card as a user calls it: once to warm up,
+    then with the launch counts from 0: one tracker launch on route
+    ``kind`` and one K2 launch, every pattern block detected in every
+    stream with the sent bits.  Returns (the tracker, its result, the
+    launch counts)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+
+    if ktrk.route(cfg) != kind:
+        raise AssertionError(f"{cell}: route {ktrk.route(cfg)}, expected "
+                             f"{kind}")
+    track = tracker.make_tracker(cfg, xs.shape[1])
+    track(xs)                                           # warm-up, discarded
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = track(xs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    routes = dict(ktrk.route_launches)
+    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": 1,
+            "equalize": 1}
+    wrong = int((r.hard_bits[:, :cfg.num_bits] != bits).sum())
+    if (counts != want or routes[kind] != 1 or sum(routes.values()) != 1 or
+            not bool((r.count == cfg.num_patterns).all()) or wrong):
+        raise AssertionError(f"{cell}: launches {counts} (expected {want}), "
+                             f"routes {routes}, detections "
+                             f"{r.count.tolist()[:8]}, {wrong} bits differ "
+                             "from the sent bits")
+    print(f"{cell}: {len(xs)} buffers of {xs.shape[1]} samples: "
+          f"{cfg.num_patterns} detections a stream, BER 0, launches "
+          f"{counts}, tracker route {kind}")
+    return track, r, counts
+
+
+def tracker_plain(cfg, xs, steps, max_det, r, cell) -> tuple:
+    """The plain path once, eager and timed: ``track_scan_plain`` and the
+    rest of ``track_frame`` on its outputs (K2's plain version "dft"); it
+    launches no kernel and equals the kernel path ``r`` (``same_track``).
+    Returns (the plain scan, its ms, the float errors of r against it)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan = ktrk.track_scan_plain(cfg, xs, 0, xs.shape[1],
+                                 tracker.tracker_init_carry(len(xs), xs.device),
+                                 steps, max_det)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    p = tracker.track_result(cfg, xs, scan[1], demod_path="dft")
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{cell}: the plain path launched a kernel")
+    errs = same_track(r, p, f"{cell}: kernel path vs plain path")
+    return scan, plain_ms, errs
+
+
+def tracker_run(dev, gpu, load_ms) -> list:
     """The tracker on whole buffers (``models.tracker.make_tracker``, the
     card's path: one launch of the step-loop kernel and one of K2 a call)
-    at GOLDEN64 B 16 (module docstring): 60 detections a stream, BER 0,
-    kernel path == plain path, the kernel's scan == its plain twin's, then
-    times: the call, the kernel alone, the plain loop eager and replayed as
-    one CUDA graph.  Returns the ``kernels`` entries."""
-    from lte_gnu_radio_code_tpu_torch import kernels
+    at GOLDEN64 B 16 (module docstring), on the warp route: 60 detections a
+    stream, BER 0, kernel path == plain path, both routes' scans == the
+    plain twin's; times: the call, each route's kernel, the plain loop
+    eager, and a profile of one call; ``load_ms`` is one dependent L2 load
+    (:func:`dependent_load_ms`).  Then the card-filling batch (8
+    streams on each SM), warp route == block route there, and its times.
+    Returns the ``kernels`` entries."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     from lte_gnu_radio_code_tpu_torch.utils import params
@@ -1385,122 +1524,84 @@ def tracker_run(dev, gpu) -> list:
     name, batch, snr_db = TRACKER
     cfg = getattr(params, name)
     cell = f"{name} tracker b{batch}"
+    max_det = cfg.num_patterns
     xs, bits = tracker_streams(cfg, batch, snr_db, dev)
     n = xs.shape[1]
     steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
-    track = tracker.make_tracker(cfg, n)
-
-    # -- the main path --------------------------------------------------------
-    track(xs)                                           # warm-up, discarded
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    r = track(xs)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": 1,
-            "equalize": 1}
-    wrong = int((r.hard_bits[:, :cfg.num_bits] != bits).sum())
-    if counts != want or not bool((r.count == cfg.num_patterns).all()) or \
-            wrong:
-        raise AssertionError(f"{cell}: launches {counts} (expected {want}), "
-                             f"detections {r.count.tolist()}, {wrong} bits "
-                             "differ from the sent bits")
-    print(f"{cell}: {batch} buffers of {n} samples, {steps} steps: "
-          f"{cfg.num_patterns} detections a stream, BER 0, launches {counts}")
-
-    # -- kernel path == plain path --------------------------------------------
-    before = kernels.launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p = tracker.make_tracker(cfg, n, scan="plain", demod_path="dft")(xs)
-    torch.cuda.synchronize()
-    plain_call_s = time.perf_counter() - t0
-    if kernels.launch_counts() != before:
-        raise AssertionError(f"{cell}: the plain path launched a kernel")
-    errs = same_track(r, p, f"{cell}: kernel path vs plain path")
     carry0 = tracker.tracker_init_carry(batch, dev)
-    ck, yk = ktrk.track_scan(cfg, xs, 0, n, carry0, steps)
-    cp_, yp = ktrk.track_scan_plain(cfg, xs, 0, n, carry0, steps)
-    for nm, a, b in zip(("accept", "ptr", "delay"), yk, yp):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{cell}: scan {nm} differs in "
-                                 f"{int((a != b).sum())} steps")
-    for nm, a, b in zip(tracker.TrackerCarry._fields, ck, cp_):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{cell}: carry {nm} differs")
-    peak_err = float(((yk[3] - yp[3]).abs() / yp[3].abs().clamp_min(1.0)).max())
-    h_err = float((yk[4] - yp[4]).abs().max())
-    if peak_err > 1e-5 or h_err > 1e-5:
-        raise AssertionError(f"{cell}: scan peaks within {peak_err:.3e}, "
-                             f"channel rows within {h_err:.3e} (allowed 1e-5)")
-    print(f"{cell}: kernel path == plain path (scan='plain', 'dft'): count, "
-          f"ptrs, delays, bits equal; peaks / chans / phasors within "
-          f"{errs[0]:.2e} / {errs[1]:.2e} / {errs[2]:.2e}; the kernel's "
-          f"scan == track_scan_plain: every carry field (float bits too), "
-          f"accept, ptr, delay equal, peaks within {peak_err:.2e} of their "
-          f"size, channel rows within {h_err:.2e}")
+
+    # -- the main path, then the plain path and both routes against it -------
+    track, r, counts = tracker_main_path(cfg, xs, bits, "warp", cell)
+    scan, plain_ms, errs = tracker_plain(cfg, xs, steps, max_det, r, cell)
+    err = {kind: tracker_check(cfg, xs, steps, max_det, kind, scan, cell)
+           for kind in ("warp", "block")}
+    print(f"{cell}: kernel path == plain path: count, ptrs, delays, bits "
+          f"equal; peaks / chans / phasors within {errs[0]:.2e} / "
+          f"{errs[1]:.2e} / {errs[2]:.2e}; both routes' scans == "
+          f"track_scan_plain: every carry field's bits, accept, ptr, delay "
+          f"equal, peaks and channel table within {err['warp']:.2e} (warp) / "
+          f"{err['block']:.2e} (block)")
 
     # -- times ----------------------------------------------------------------
-    times = []
-    for _ in range(SERVING_ROUNDS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        track(xs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    call_s = sorted(times)[len(times) // 2]
-    scan = lambda: ktrk.track_scan(cfg, xs, 0, n, carry0, steps)
-    scan_ms = event_ms(scan, 5, evict=False)
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        ktrk.track_scan_plain(cfg, xs, 0, n, carry0, 2)
-    torch.cuda.current_stream().wait_stream(side)
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        _, yg = ktrk.track_scan_plain(cfg, xs, 0, n, carry0, steps)
-    capture_s = time.perf_counter() - t0
-    graph.replay()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(yg[:3], yp[:3])):
-        raise AssertionError(f"{cell}: the graph replay's scan differs")
-    replays = []
-    for _ in range(SERVING_ROUNDS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        graph.replay()
-        torch.cuda.synchronize()
-        replays.append((time.perf_counter() - t0) * 1e3)
-    graph_ms = sorted(replays)[len(replays) // 2]
-    nodes = count_launches(lambda: ktrk.track_scan_plain(cfg, xs, 0, n,
-                                                         carry0, 4)) / 4
-    del graph, yg
-    load_ms = dependent_load_ms(dev)
-    nbytes = xs.nbytes + sum(c.nbytes for c in carry0) * 2 + sum(
-        y.nbytes for y in yk)
-    l_syn, d = cfg.m_synch * cfg.num_synch_bins, cfg.cp_len + 1
-    ops = batch * steps * (cfg.m_synch * 5.0 * cfg.nfft * np.log2(cfg.nfft) +
-                           8.0 * l_syn * d + 16.0 * l_syn)
+    call, rounds = call_ms(lambda: track(xs))
+    launch = functools.partial(ktrk._launch, cfg=cfg, x=xs, x_start=0,
+                               fire_limit=n, carry=carry0, steps=steps,
+                               max_det=max_det)
+    ms = {kind: event_ms(lambda: launch(kind), 5, evict=False)
+          for kind in ("warp", "block")}
+    # every step frozen from the first (fire_limit 0): the kernel's cost
+    # besides its chain of fired steps
+    frozen = event_ms(lambda: launch("warp", fire_limit=0), 5, evict=False)
+    computed, nbytes, ops = tracker_work(cfg, xs, scan)
     bound_ms, bound_by = bound(nbytes, ops)
-    print(f"{cell}: track_frame {call_s * 1e3:.3f} ms a call (median of "
-          f"rounds {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
-          f"{batch * n / call_s / 1e6:.3f} Msamples/s, "
-          f"{n / call_s / 1e6:.3f} a stream; the step-loop kernel "
-          f"{scan_ms:.3f} ms ({scan_ms * 1e3 / steps:.3f} us a step); plain "
-          f"loop eager {plain_call_s * 1e3:.1f} ms a call "
-          f"({nodes:.1f} device launches a step), captured as one CUDA "
-          f"graph in {capture_s:.1f} s and replayed in {graph_ms:.1f} ms "
-          f"(rounds {', '.join(f'{t:.1f}' for t in replays)}); bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops:.3e} "
-          f"operations), {steps} steps x one dependent load from the L2 "
-          f"({load_ms * 1e6:.1f} ns) = {steps * load_ms:.3f} ms; on {gpu}")
+    chain = int(computed.max())
+    per_step = (ms["warp"] - frozen) * 1e3 / (chain - 1)
+    print(f"{cell}: track_frame {call:.3f} ms a call (median of rounds "
+          f"{', '.join(f'{t:.3f}' for t in rounds)}), "
+          f"{batch * n / call / 1e3:.3f} Msamples/s, {n / call / 1e3:.3f} a "
+          f"stream; the step-loop kernel: warp route {ms['warp']:.4f} ms "
+          f"({ms['warp'] * 1e3 / steps:.4f} us a step of {steps}, "
+          f"{ms['warp'] * 1e3 / chain:.4f} us a computed step of {chain}), "
+          f"block route {ms['block']:.4f} ms ({ms['block'] * 1e3 / steps:.4f} "
+          f"us a step); warp route with every step frozen {frozen:.4f} ms, "
+          f"so {per_step:.4f} us a fired step; plain loop eager "
+          f"{plain_ms:.1f} ms; bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({nbytes} bytes, {ops:.3e} operations), {chain} "
+          f"computed steps x one dependent load from the L2 "
+          f"({load_ms * 1e6:.1f} ns) = {chain * load_ms:.4f} ms; on {gpu}")
+    busy, launches = profile(lambda i: track(xs), f"{cell} track_frame")
+    print(f"{cell}: track_frame busy {busy:.4f} ms of {call:.3f} a call "
+          f"(idle share {1 - busy / call:.3f}), {launches:.1f} device "
+          "launches a call")
+
+    # -- the card-filling batch ----------------------------------------------
+    big = torch.cuda.get_device_properties(dev).multi_processor_count * \
+        TRACKER_FILL_PER_SM
+    cell_b = f"{name} tracker b{big}"
+    xb, bits_b = tracker_streams(cfg, big, snr_db, dev)
+    track_b, _, counts_b = tracker_main_path(cfg, xb, bits_b, "warp", cell_b)
+    carry_b = tracker.tracker_init_carry(big, dev)
+    block_b = ktrk._launch("block", cfg, xb, 0, n, carry_b, steps, max_det)
+    err_b = tracker_check(cfg, xb, steps, max_det, "warp", block_b, cell_b)
+    call_b, rounds_b = call_ms(lambda: track_b(xb))
+    ms_b = event_ms(lambda: ktrk._launch("warp", cfg, xb, 0, n, carry_b,
+                                         steps, max_det), 5, evict=False)
+    computed_b, nbytes_b, ops_b = tracker_work(cfg, xb, block_b)
+    chain_b = int(computed_b.max())
+    bound_b, bound_by_b = bound(nbytes_b, ops_b)
+    print(f"{cell_b}: warp route == block route (every integer output and "
+          f"carry bit; floats within {err_b:.2e}); track_frame {call_b:.3f} "
+          f"ms a call (rounds {', '.join(f'{t:.3f}' for t in rounds_b)}), "
+          f"{big * n / call_b / 1e3:.3f} Msamples/s, "
+          f"{n / call_b / 1e3:.3f} a stream; the warp route {ms_b:.4f} ms "
+          f"({ms_b * 1e3 / chain_b:.4f} us a computed step of {chain_b}); "
+          f"bound {bound_b:.5f} ms by {bound_by_b}; on "
+          f"{gpu}")
 
     # -- K2 at the tracker's demod shape ----------------------------------------
-    from lte_gnu_radio_code_tpu_torch.models import stream_rx
     from lte_gnu_radio_code_tpu_torch.ops import sync
     from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
-    valid = torch.arange(cfg.num_patterns, device=dev) < r.count[:, None]
+    valid = torch.arange(max_det, device=dev) < r.count[:, None]
     win, rot, ok = tracker.demod_track_table(cfg, xs, r.ptrs, r.delays,
                                              valid, n)
     bins = device_table(sync._bins, dev, cfg.nfft, cfg.num_data_bins)
@@ -1511,17 +1612,75 @@ def tracker_run(dev, gpu) -> list:
                                                       ).contiguous()
     k2 = equalize_check(cfg, rows, coeff)
     print_kernel_rows(cell, {"equalize": k2})
-    entry = {"name": f"tracker [{cell}]", "route": "cuda",
-             "source": SOURCES["tracker"][0],
-             "replaces": SOURCES["tracker"][1], "launches": counts["tracker"],
-             "max_abs_err": max(peak_err, h_err), "ms": scan_ms,
-             "plain_ms": plain_call_s * 1e3, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": graph_ms,
-             "steps": steps, "us_per_step": scan_ms * 1e3 / steps,
-             "latency_bound_ms": steps * load_ms,
-             "dependent_load_ns": load_ms * 1e6,
-             "call_ms": call_s * 1e3, "msps": batch * n / call_s / 1e6}
+    entry = tracker_entry("tracker_scan_warp", cell, counts["tracker"],
+                          err["warp"], ms["warp"], plain_ms, bound_ms,
+                          bound_by, steps, chain, load_ms)
+    entry.update({
+        "other_route_ms": ms["block"], "frozen_ms": frozen,
+        "us_per_fired_step": per_step, "call_ms": call,
+        "msps": batch * n / call / 1e3, "busy_ms": busy,
+        "fill_batch": big, "fill_launches": counts_b["tracker"],
+        "fill_ms": ms_b, "fill_call_ms": call_b,
+        "fill_msps": big * n / call_b / 1e3,
+        "fill_us_per_computed_step": ms_b * 1e3 / chain_b,
+        "fill_bound_ms": bound_b})
     return [entry, kernel_entry("equalize", cell, counts["equalize"], k2)]
+
+
+def tracker_entry(kernel, cell, launches, err, ms, plain_ms, bound_ms,
+                  bound_by, steps, chain, load_ms) -> dict:
+    """One tracker entry of the ``kernels`` line.  There is no library
+    call: torch has no sequential scan."""
+    return {"name": f"{kernel} [{cell}]", "route": "cuda",
+            "source": SOURCES["tracker"][0],
+            "replaces": SOURCES["tracker"][1], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "steps": steps, "computed_steps": chain,
+            "us_per_step": ms * 1e3 / steps,
+            "us_per_computed_step": ms * 1e3 / chain,
+            "latency_bound_ms": chain * load_ms,
+            "dependent_load_ns": load_ms * 1e6}
+
+
+def tracker_block_run(dev, gpu, load_ms) -> dict:
+    """The block route on its own main path: ``make_tracker`` on TRACKER_LTE
+    buffers (LTE1024, nfft above the warp route's limit) made on the card:
+    one tracker launch on the block route and one K2 launch, every block
+    detected with the sent bits, kernel path == plain path, the kernel's
+    scan == the plain twin's; its time a call and a step."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    name, batch, snr_db = TRACKER_LTE
+    cfg = getattr(params, name)
+    cell = f"{name} tracker b{batch}"
+    max_det = cfg.num_patterns
+    xs, bits = tracker_streams(cfg, batch, snr_db, dev)
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    track, r, counts = tracker_main_path(cfg, xs, bits, "block", cell)
+    scan, plain_ms, errs = tracker_plain(cfg, xs, steps, max_det, r, cell)
+    err = tracker_check(cfg, xs, steps, max_det, "block", scan, cell)
+    call, rounds = call_ms(lambda: track(xs))
+    ms = event_ms(lambda: ktrk._launch("block", cfg, xs, 0, n,
+                                       tracker.tracker_init_carry(batch, dev),
+                                       steps, max_det), 5, evict=False)
+    computed, nbytes, ops = tracker_work(cfg, xs, scan)
+    bound_ms, bound_by = bound(nbytes, ops)
+    chain = int(computed.max())
+    print(f"{cell}: kernel path == plain path (floats within "
+          f"{max(errs):.2e}), the block route's scan == track_scan_plain "
+          f"(floats within {err:.2e}); track_frame {call:.3f} ms a call "
+          f"(rounds {', '.join(f'{t:.3f}' for t in rounds)}); the block "
+          f"route {ms:.4f} ms, {ms * 1e3 / steps:.4f} us a step of {steps} "
+          f"({chain} computed); plain loop eager {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.5f} ms by {bound_by}; on {gpu}")
+    entry = tracker_entry("tracker_scan", cell, counts["tracker"], err, ms,
+                          plain_ms, bound_ms, bound_by, steps, chain, load_ms)
+    entry["call_ms"] = call
+    return entry
 
 
 def tracker_stream_run(dev, gpu) -> None:
@@ -1823,7 +1982,9 @@ def main() -> int:
         if check is not None:
             entries.append(kernel_entry("equalize", cell, launches, check))
     split_check(dev)
-    entries += tracker_run(dev, gpu)
+    load_ms = dependent_load_ms(dev)
+    entries += tracker_run(dev, gpu, load_ms)
+    entries.append(tracker_block_run(dev, gpu, load_ms))
     tracker_stream_run(dev, gpu)
     print(json.dumps({"kernels": entries}))
     print(card())

@@ -4,7 +4,9 @@ PyTorch twin, and their launch counts.
 K1 ``ofdm_mod``, K2 ``equalize``, K3 ``channel_conv``, K4 ``sync_search``,
 and ``tracker`` (the tracker's step loop, which has no Pallas kernel).
 Each module keeps ``launches``, a plain int that its wrapper raises by one
-per kernel launch (the twin never counts).
+per kernel launch (the twin never counts); K4 and the tracker also keep
+``route_launches``, the same launches by route.  :func:`reset_launch_counts`
+sets both to 0.
 """
 
 KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
@@ -24,3 +26,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for m in _modules().values():
         m.launches = 0
+        for kind in getattr(m, "route_launches", ()):
+            m.route_launches[kind] = 0

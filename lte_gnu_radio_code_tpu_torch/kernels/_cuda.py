@@ -37,9 +37,11 @@ SIGNATURES = {
                         _P),
     "sync_search_direct": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P),
-    "tracker_scan": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
 }
+# the tracker's two routes take the same arguments (csrc/tracker.cu)
+SIGNATURES["tracker_scan"] = SIGNATURES["tracker_scan_warp"] = (
+    _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)
 
 
 def _nvcc() -> str:

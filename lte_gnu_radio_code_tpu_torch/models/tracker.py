@@ -7,10 +7,11 @@ Port of ``lte_gnu_radio_code_tpu/models/tracker.py`` (``TrackResult``,
 ``make_tracker``).  The tracker is sequential: the window a step reads
 depends on every detection before it.  The JAX package runs its step in one
 ``lax.scan``; here the step loop is ``kernels/tracker.py:track_scan``, one
-persistent CUDA kernel on the card (one block a stream runs every step) and
-a Python loop over :func:`make_tracker_step` (its plain twin) on the CPU.
-The step's outputs are the scan's, so the detection table, the channel
-table and the demod after it are shared by both.
+persistent CUDA kernel on the card (one warp a stream at nfft <= 128, one
+block a stream above) and a Python loop over :func:`make_tracker_step` (its
+plain twin) on the CPU.  Both return the scan's step outputs and its
+channel rows compacted (:func:`emit_channels`), so the detection table and
+the demod after it are shared by both.
 
 State machine (``make_tracker_step``; the carry is :class:`TrackerCarry`):
 
@@ -285,7 +286,8 @@ def make_tracker_step(cfg: OFDMConfig, x: torch.Tensor, x_start,
 def emit_channels(accepted: torch.Tensor, h_all: torch.Tensor,
                   max_det: int) -> torch.Tensor:
     """The channel rows h_all [B, steps, nfft] of the accepted steps, in
-    order, in a [B, max_det, nfft] table (zero rows past the count)."""
+    order, in a [B, max_det, nfft] table (zero rows past the count): the
+    channel table ``kernels/tracker.py:track_scan`` returns."""
     slot = accepted.to(torch.int64).cumsum(-1) - 1
     tgt = torch.where(accepted & (slot < max_det), slot, max_det)
     b, _, nfft = h_all.shape
@@ -347,7 +349,8 @@ def track_frame(cfg: OFDMConfig, x: torch.Tensor, total_loops: int,
                 max_det: int, scan: str | None = None,
                 demod_path: str | None = None) -> TrackResult:
     """The tracker over whole buffers x [B, n] (or one buffer [n]): one
-    ``track_scan`` of ``total_loops`` steps, the accepted steps compacted
+    ``track_scan`` of ``total_loops`` steps (it returns the channel table
+    compacted), the accepted steps' pointers, delays and peaks compacted
     into a [max_det] table, then the data demod and the QPSK hard bits per
     buffer (``tracker.py:track_frame``, vmapped).  ``scan`` None runs
     ``kernels/tracker.py:track_scan`` (the kernel on a CUDA tensor), "plain"
@@ -357,21 +360,29 @@ def track_frame(cfg: OFDMConfig, x: torch.Tensor, total_loops: int,
     one = x.ndim == 1
     xb = x[None] if one else x
     batch, n = xb.shape
-    nd = cfg.synch_dat[1]
     run = (tracker_kernel.track_scan if scan is None
            else tracker_kernel.track_scan_plain)
-    _, (acc, ptrs_all, dels_all, peaks_all, h_all) = run(
-        cfg, xb, 0, n, tracker_init_carry(batch, xb.device), total_loops)
+    _, ys = run(cfg, xb, 0, n, tracker_init_carry(batch, xb.device),
+                total_loops, max_det)
+    out = track_result(cfg, xb, ys, demod_path)
+    return TrackResult(*(f[0] for f in out)) if one else out
 
+
+def track_result(cfg: OFDMConfig, x: torch.Tensor, ys,
+                 demod_path: str | None = None) -> TrackResult:
+    """:func:`track_frame` after its scan: the outputs ``ys`` of a
+    ``track_scan`` over whole buffers x [B, n] (channel table [B, max_det,
+    nfft]) -> the detection table, the demod and the QPSK hard bits."""
+    acc, ptrs_all, dels_all, peaks_all, chan = ys
+    batch, max_det = chan.shape[:2]
     (ptrs, delays, peaks), count = sync.emit_slots(
         acc, (ptrs_all, dels_all, peaks_all), max_det)
-    chan = emit_channels(acc, h_all, max_det)
-    det_valid = torch.arange(max_det, device=xb.device) < count[:, None]
-    phasors = track_phasors(cfg, xb, ptrs, delays, det_valid, n, chan,
-                            demod_path).reshape(batch, max_det * nd, -1)
+    det_valid = torch.arange(max_det, device=x.device) < count[:, None]
+    phasors = track_phasors(cfg, x, ptrs, delays, det_valid, x.shape[1],
+                            chan, demod_path).reshape(
+                                batch, max_det * cfg.synch_dat[1], -1)
     hard, _, _ = modulation.qpsk_llr_frames(phasors)
-    out = TrackResult(ptrs, delays, peaks, count, chan, phasors, hard)
-    return TrackResult(*(f[0] for f in out)) if one else out
+    return TrackResult(ptrs, delays, peaks, count, chan, phasors, hard)
 
 
 def make_tracker(cfg: OFDMConfig, n_samples: int, max_det: int | None = None,

@@ -673,10 +673,10 @@ def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
                       ) -> tuple[TrackStreamState, TrackChunkOut]:
     """One chunk of the streaming tracker (``stream.py:track_stream_step``):
     ``slots`` tracker steps over ext = [hist, chunk] (one ``track_scan``:
-    one kernel launch on the card), the accepted ones
-    compacted into a [det_max] table, each demodulated
-    (``models/tracker.py:track_phasors``, K2 with ``demod_path="kernel"``)
-    and decided (``stream_rx.hard_decide``).  A step fires only where its
+    one kernel launch on the card, which also returns the channel table
+    compacted), the accepted ones compacted into a [det_max] table, each
+    demodulated (``models/tracker.py:track_phasors``, K2 with
+    ``demod_path="kernel"``) and decided (``stream_rx.hard_decide``).  A step fires only where its
     synch windows lie inside the real samples and its pattern's data span
     inside ext, so a pointer that does not fit yet is retried next chunk.
     Static shapes, the carry on the device, nothing waits for the host."""
@@ -690,13 +690,12 @@ def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
     fire_limit = torch.minimum(
         real_end, ext_end - (nd - m0 + 1) * cfg.rx_b_len + 1)
 
-    carry, (acc, ptrs_all, dels_all, peaks_all, h_all) = \
+    carry, (acc, ptrs_all, dels_all, peaks_all, chans) = \
         tracker_kernel.track_scan(cfg, ext[None], ext_start, fire_limit,
-                                  state.carry, slots)
+                                  state.carry, slots, det_max)
 
     (g_ptrs, delays, peaks), count = sync.emit_slots(
         acc, (ptrs_all, dels_all, peaks_all), det_max)
-    chans = tracker.emit_channels(acc, h_all, det_max)
     valid = torch.arange(det_max, device=chunk.device) < count[:, None]
     ptrs_local = torch.where(valid, g_ptrs - ext_start, 0)
     phasors = tracker.track_phasors(cfg, ext[None], ptrs_local, delays, valid,

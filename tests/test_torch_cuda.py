@@ -661,13 +661,39 @@ TRACKER_CFGS = pytest.mark.parametrize("cfg", [
     ids=["golden64", "m_synch2", "nfft128"])
 
 
+def _same_scan(cfg, xs, steps, max_det, kind, ref):
+    """The tracker kernel of route ``kind`` against a scan ``ref`` = (carry,
+    ys) on the same inputs: every carry field (float bits too), accept,
+    pointer and delay at every step equal, peaks within 1e-5 of their size,
+    the compacted channel table within 1e-5."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    n = xs.shape[1]
+    before = dict(ktrk.route_launches)
+    ck, yk = ktrk._launch(kind, cfg, xs, 0, n,
+                          tracker.tracker_init_carry(len(xs), xs.device),
+                          steps, max_det)
+    assert ktrk.route_launches[kind] == before[kind] + 1
+    cp_, yp = ref
+    for name, a, b in zip(tracker.TrackerCarry._fields, ck, cp_):
+        assert torch.equal(a, b), name
+    for name, a, b in zip(("accept", "ptr", "delay"), yk, yp):
+        assert torch.equal(a, b), name
+    torch.testing.assert_close(yk[3], yp[3], rtol=1e-5, atol=0)
+    assert yk[4].shape == (len(xs), max_det, cfg.nfft)
+    torch.testing.assert_close(yk[4], yp[4], atol=1e-5, rtol=0)
+    return ck, yk
+
+
 @TRACKER_CFGS
 def test_track_scan_kernel_equals_plain(dev, cfg):
-    """The tracker's step-loop kernel against its plain twin on three
-    streams: every carry field (float bits too), accept, pointer and delay
-    at every step equal, peaks within 1e-5 of their size, channel rows
-    within 1e-5; track_frame on the card (one tracker and one K2 launch) ==
-    the plain path (scan="plain", "dft")."""
+    """The tracker's step-loop kernels against their plain twin on three
+    streams, on both routes (the rule's and the other one): every carry
+    field (float bits too), accept, pointer and delay at every step equal,
+    peaks within 1e-5 of their size, the compacted channel table within
+    1e-5, with max_det below the accept count too; track_frame on the card
+    (one tracker and one K2 launch) == the plain path (scan="plain",
+    "dft")."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     bits, xs = _frames(cfg, dev, 3, seed=40)
@@ -675,16 +701,18 @@ def test_track_scan_kernel_equals_plain(dev, cfg):
     n = xs.shape[1]
     steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
     carry = tracker.tracker_init_carry(3, dev)
+    assert ktrk.route(cfg) == "warp"
     kernels.reset_launch_counts()
-    ck, yk = ktrk.track_scan(cfg, xs, 0, n, carry, steps)
+    ck, yk = ktrk.track_scan(cfg, xs, 0, n, carry, steps, cfg.num_patterns)
     assert kernels.launch_counts()["tracker"] == 1
-    cp_, yp = ktrk.track_scan_plain(cfg, xs, 0, n, carry, steps)
-    for a, b in zip(ck, cp_):
-        assert torch.equal(a, b)
-    for a, b in zip(yk[:3], yp[:3]):
-        assert torch.equal(a, b)
-    torch.testing.assert_close(yk[3], yp[3], rtol=1e-5, atol=0)
-    torch.testing.assert_close(yk[4], yp[4], atol=1e-5, rtol=0)
+    assert ktrk.route_launches == {"warp": 1, "block": 0}
+    c_ref, y_ref = ktrk.track_scan_plain(cfg, xs, 0, n, carry, steps,
+                                         cfg.num_patterns)
+    for max_det in (cfg.num_patterns, cfg.num_patterns // 3):
+        # a shorter table is the first max_det rows of the longer one
+        ref = c_ref, (*y_ref[:4], y_ref[4][:, :max_det])
+        for kind in ("warp", "block"):
+            _same_scan(cfg, xs, steps, max_det, kind, ref)
     kernels.reset_launch_counts()
     r = tracker.make_tracker(cfg, n)(xs)
     assert kernels.launch_counts() == {**dict.fromkeys(
@@ -699,6 +727,54 @@ def test_track_scan_kernel_equals_plain(dev, cfg):
         assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
 
 
+@pytest.mark.parametrize("cfg,n_sym", [
+    (dataclasses.replace(G24, nfft=256, cp_len=64, num_data_bins=240,
+                         num_synch_bins=254), 24),
+    (LTE1024, 16)], ids=["nfft256", "lte1024"])
+def test_tracker_block_route(dev, cfg, n_sym):
+    """Shapes the rule gives to the block route (nfft 256, and a short
+    LTE1024 buffer of 16 symbols): the kernel == the plain twin, every
+    pattern block detected with the sent bits."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    cfg = dataclasses.replace(cfg, num_ofdm_symb=n_sym)
+    assert ktrk.route(cfg) == "block"
+    bits, xs = _frames(cfg, dev, 2, seed=43)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    ref = ktrk.track_scan_plain(cfg, xs, 0, n, tracker.tracker_init_carry(
+        2, dev), steps, cfg.num_patterns)
+    _same_scan(cfg, xs, steps, cfg.num_patterns, "block", ref)
+    r = tracker.make_tracker(cfg, n)(xs)
+    assert bool((r.count == cfg.num_patterns).all())
+    assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
+
+
+def test_tracker_warp_route_equals_block_route(dev):
+    """GOLDEN64 on 8 streams: the warp route == the block route in every
+    integer output and every carry field's bits, peaks within 1e-5 of their
+    size, channel tables within 1e-5; and with the carry of a first call
+    passed to a second (a stream's chunks), the same again."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    cfg = GOLDEN64
+    _, xs = _frames(cfg, dev, 8, seed=44)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    carry = tracker.tracker_init_carry(8, dev)
+    for steps in (30, 1800):
+        w = ktrk._launch("warp", cfg, xs, 0, n, carry, steps, 40)
+        b = ktrk._launch("block", cfg, xs, 0, n, carry, steps, 40)
+        for name, x, y in zip(tracker.TrackerCarry._fields, w[0], b[0]):
+            assert torch.equal(x, y), name
+        for x, y in zip(w[1][:3], b[1][:3]):
+            assert torch.equal(x, y)
+        torch.testing.assert_close(w[1][3], b[1][3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(w[1][4], b[1][4], atol=1e-5, rtol=0)
+        carry = w[0]
+
+
 def test_tracker_kernel_shape_rule(dev):
     """An nfft that is not a power of two, no synch symbol, or a carry of
     another type raises ValueError on a CUDA tensor."""
@@ -710,10 +786,10 @@ def test_tracker_kernel_shape_rule(dev):
                                     num_data_bins=90),
                 dataclasses.replace(G24, synch_dat=(0, 3))):
         with pytest.raises(ValueError):
-            ktrk.track_scan(bad, x, 0, 4000, carry, 8)
+            ktrk.track_scan(bad, x, 0, 4000, carry, 8, 4)
     with pytest.raises(ValueError):
         ktrk.track_scan(G24, x, 0, 4000, carry._replace(
-            b=carry.b.double()), 8)
+            b=carry.b.double()), 8, 4)
 
 
 def test_tracker_stream_on_the_card(dev):

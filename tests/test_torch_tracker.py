@@ -270,15 +270,242 @@ def test_push_many_equals_pushes(golden):
 
 
 def test_kernel_shape_rule():
-    """On a CUDA tensor the kernel takes nfft a power of two in [16, 4096]
+    """On a CUDA tensor the kernels take nfft a power of two in [16, 4096]
     and m_synch >= 1 within one block's shared memory, else ValueError."""
     cfg = port_cfg(G64)
-    ktrk.require(cfg)
-    ktrk.require(port_cfg(M2))
+    assert ktrk.route(cfg) == "warp"
+    assert ktrk.route(port_cfg(M2)) == "warp"
     for bad in (dataclasses.replace(cfg, nfft=96, num_synch_bins=94,
                                     num_data_bins=90),
                 dataclasses.replace(cfg, synch_dat=(0, 3)),
                 dataclasses.replace(cfg, nfft=8192, num_synch_bins=8190)):
         with pytest.raises(ValueError):
-            ktrk.require(bad)
-    assert ktrk.smem_bytes(cfg) == 2 * 16 * 64 * 8 + 62 * 8 + 80
+            ktrk.route(bad)
+    assert ktrk.smem_bytes(cfg, "block") == 2 * 16 * 64 * 8 + 62 * 8 + 80
+    assert ktrk.smem_bytes(cfg, "warp") == (17 + 1) * 64 * 8
+
+
+NFFT128 = dataclasses.replace(G64, nfft=128, cp_len=32, num_data_bins=120,
+                              num_synch_bins=126)
+NFFT256 = dataclasses.replace(G64, nfft=256, cp_len=64, num_data_bins=240,
+                              num_synch_bins=254)
+
+
+@pytest.mark.parametrize("cfg,kind", [
+    (G64, "warp"), (NFFT128, "warp"), (M2, "warp"),
+    (dataclasses.replace(G64, nfft=16, cp_len=4, num_data_bins=12,
+                         num_synch_bins=14), "warp"),
+    (NFFT256, "block"), (jparams.LTE1024, "block"), (jparams.LTE2048, "block"),
+    (dataclasses.replace(jparams.LTE1024, synch_dat=(2, 2)), "block"),
+    (dataclasses.replace(G64, cp_len=64), "block")],
+    ids=["golden64", "nfft128", "m_synch2", "nfft16", "nfft256", "lte1024",
+         "lte2048", "lte1024-m_synch2", "cp-nfft"])
+def test_route_rule(cfg, kind):
+    """nfft up to WARP_MAX_NFFT with cp < nfft takes the warp route, larger
+    nfft (or cp >= nfft) the block route, whatever m_synch is."""
+    assert ktrk.route(port_cfg(cfg)) == kind
+
+
+@pytest.mark.parametrize("bad", [
+    dict(nfft=96, num_synch_bins=94, num_data_bins=90),
+    dict(nfft=8, cp_len=2, num_synch_bins=6, num_data_bins=4),
+    dict(synch_dat=(0, 3)),
+    dict(nfft=128, cp_len=32, num_synch_bins=126, num_data_bins=120,
+         synch_dat=(200, 2)),
+    dict(nfft=2048, cp_len=512, num_synch_bins=2046, num_data_bins=1200,
+         synch_dat=(40, 2))],
+    ids=["nfft96", "nfft8", "no-synch", "warp-smem", "block-smem"])
+def test_route_raises_where_no_kernel_takes_the_shape(bad):
+    cfg = dataclasses.replace(port_cfg(G64), **bad)
+    with pytest.raises(ValueError):
+        ktrk.route(cfg)
+
+
+def _steps(cfg, x, steps, carry=None):
+    """The plain step run by hand: the carry after, and the step outputs
+    stacked (channel rows uncompacted [B, steps, nfft])."""
+    step = trk.make_tracker_step(cfg, x, 0, x.shape[1])
+    carry = trk.tracker_init_carry(x.shape[0]) if carry is None else carry
+    ys = []
+    for _ in range(steps):
+        carry, y = step(carry)
+        ys.append(y)
+    return carry, [torch.stack(f, 1) for f in zip(*ys)]
+
+
+def _compacted(acc, rows, max_det):
+    """The channel table by its definition: row k the k-th accepted step's
+    row, accepted steps past max_det dropped, zero rows after."""
+    out = torch.zeros(acc.shape[0], max_det, rows.shape[-1],
+                      dtype=rows.dtype)
+    for b in range(acc.shape[0]):
+        idx = torch.nonzero(acc[b]).reshape(-1)[:max_det]
+        out[b, :len(idx)] = rows[b, idx]
+    return out
+
+
+@pytest.mark.parametrize("max_det", [4, 40])
+def test_track_scan_plain_returns_the_compacted_table(golden, max_det):
+    """track_scan_plain's channel table == emit_channels of the stacked step
+    rows of make_tracker_step == the table by its definition, with a
+    max_det below the accept count (rows dropped) and above it (zero rows);
+    the other outputs and the carry are the steps' own."""
+    _, rx = golden
+    cfg = port_cfg(G64)
+    _, rx2 = _buffer(G64, seed=1)
+    x = torch.from_numpy(np.stack([rx, rx2]))
+    steps = 12
+    c_ref, (acc, ptr, delay, peak, rows) = _steps(cfg, x, steps)
+    carry, ys = ktrk.track_scan_plain(cfg, x, 0, x.shape[1],
+                                      trk.tracker_init_carry(2), steps,
+                                      max_det)
+    assert ys[4].shape == (2, max_det, cfg.nfft)
+    n_acc = acc.sum(1)
+    assert bool((n_acc > 4).all()) and bool((n_acc < 40).all())
+    assert torch.equal(ys[4], trk.emit_channels(acc, rows, max_det))
+    assert torch.equal(ys[4], _compacted(acc, rows, max_det))
+    for a, b in zip(ys[:4], (acc, ptr, delay, peak)):
+        assert torch.equal(a, b)
+    for a, b in zip(carry, c_ref):
+        assert torch.equal(a, b)
+
+
+def test_track_scan_plain_count_restarts_each_call(golden):
+    """A stream chunk is one call: the second call's table starts at its own
+    first accepted step (not at sym_count), as the rows of one long run
+    split at the same step."""
+    _, rx = golden
+    cfg = port_cfg(G64)
+    x = torch.from_numpy(rx)[None]
+    first, steps, max_det = 5, 12, 8
+    _, (acc, *_, rows) = _steps(cfg, x, steps)
+    c1, y1 = ktrk.track_scan_plain(cfg, x, 0, x.shape[1],
+                                   trk.tracker_init_carry(1), first, max_det)
+    _, y2 = ktrk.track_scan_plain(cfg, x, 0, x.shape[1], c1, steps - first,
+                                  max_det)
+    assert int(acc[:, :first].sum()) >= 3 and int(acc[:, first:].sum()) >= 3
+    assert int(c1.sym_count) == int(acc[:, :first].sum())
+    assert torch.equal(y1[4], _compacted(acc[:, :first], rows[:, :first],
+                                         max_det))
+    assert torch.equal(y2[4], _compacted(acc[:, first:], rows[:, first:],
+                                         max_det))
+    assert torch.equal(y2[0], acc[:, first:])
+
+
+@pytest.mark.parametrize("cfg,kind", [(G64, "warp"), (M2, "warp"),
+                                      (NFFT256, "block")],
+                         ids=["golden64", "m_synch2", "nfft256"])
+def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
+    """The wrapper's CUDA branch with the launch recorded instead of run:
+    the entry point the rule names with as many arguments as its C
+    signature, max_det and the block's shared memory passed, the outputs
+    shaped [B, steps] and [B, max_det, nfft], one launch counted on that
+    route, and the route counts reset with the others."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import _cuda
+    pcfg = port_cfg(cfg)
+    calls = []
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    kernels.reset_launch_counts()
+    assert ktrk.route_launches == {"warp": 0, "block": 0}
+    batch, n, steps, max_det = 3, 4000, 40, 7
+    x = torch.zeros(batch, n, dtype=torch.complex64)
+    carry, ys = ktrk.track_scan(pcfg, x, 0, n, trk.tracker_init_carry(batch),
+                                steps, max_det)
+    (name, args), = calls
+    assert name == ktrk.ENTRY[kind]
+    assert len(args) + 1 == len(_cuda.SIGNATURES[name])
+    assert args[7:9] == (steps, max_det)
+    assert args[-3] == ktrk.smem_bytes(pcfg, kind)
+    assert [tuple(y.shape) for y in ys] == [(batch, steps)] * 4 + [
+        (batch, max_det, cfg.nfft)]
+    assert ys[4].dtype == torch.complex64
+    assert [tuple(c.shape) for c in carry] == [
+        tuple(c.shape) for c in trk.tracker_init_carry(batch)]
+    assert kernels.launch_counts()["tracker"] == 1
+    other = "block" if kind == "warp" else "warp"
+    assert ktrk.route_launches == {kind: 1, other: 0}
+    calls.clear()
+    ktrk._launch("block", pcfg, x, 0, n, trk.tracker_init_carry(batch),
+                 steps, max_det)
+    ktrk._launch("warp", pcfg, x, 0, n, trk.tracker_init_carry(batch),
+                 steps, max_det)
+    assert [c[0] for c in calls] == ["tracker_scan", "tracker_scan_warp"]
+    assert [c[1][-3] for c in calls] == [ktrk.smem_bytes(pcfg, "block"),
+                                         ktrk.smem_bytes(pcfg, "warp")]
+    assert ktrk.route_launches == {kind: 2, other: 1}
+    with pytest.raises(ValueError):
+        ktrk._launch("grid", pcfg, x, 0, n, trk.tracker_init_carry(batch),
+                     steps, max_det)
+    with pytest.raises(ValueError):
+        ktrk.track_scan(pcfg, x, 0, n, trk.tracker_init_carry(batch)._replace(
+            b=torch.zeros(batch, 2, dtype=torch.float64)), steps, max_det)
+    kernels.reset_launch_counts()
+    assert ktrk.route_launches == {"warp": 0, "block": 0}
+
+
+def _warp_lanes(nfft):
+    """csrc/tracker.cu:Lanes: points a lane, lanes a window, DIF rounds."""
+    e = nfft // 32 if nfft >= 64 else 1
+    w = nfft // e
+    return e, w, w.bit_length() - 1
+
+
+def _warp_edft(v, e, inverse):
+    """The E-point DFT a lane runs on its registers (v [32, E])."""
+    if e == 2:
+        return np.stack([v[:, 0] + v[:, 1], v[:, 0] - v[:, 1]], 1)
+    if e == 4:
+        a0, a1 = v[:, 0] + v[:, 2], v[:, 0] - v[:, 2]
+        a2, a3 = v[:, 1] + v[:, 3], v[:, 1] - v[:, 3]
+        b = (1j if inverse else -1j) * a3
+        return np.stack([a0 + a2, a1 + b, a0 - a2, a1 - b], 1)
+    return v
+
+
+@pytest.mark.parametrize("nfft", [16, 32, 64, 128])
+def test_warp_route_transforms(nfft):
+    """The warp route's transforms (csrc/tracker.cu: Lane::transform,
+    Lane::inverse) run in numpy lane by lane, with the float64 twiddle
+    table of kernels/fft.py (complex64, hence 1e-5): register e of lane l
+    holds bin e + E brev(l) of np.fft.fft of the window, and the inverse of
+    a spectrum laid out so holds sum_k q_k e^(+2 pi i k n / nfft) at n = l
+    + W e (the correlation at delay n).  The lanes past W (nfft 16) repeat
+    lanes 0 to W - 1."""
+    from lte_gnu_radio_code_tpu_torch.kernels import fft
+    e_n, w_n, logw = _warp_lanes(nfft)
+    tw = fft.twiddles(nfft).astype(np.complex128)
+    lanes = np.arange(32)
+    l = lanes & (w_n - 1)
+    brev = np.array([int(format(v, f"0{logw}b")[::-1], 2) for v in l])
+    bins = np.arange(e_n)[None, :] + e_n * brev[:, None]        # [32, E]
+    w1 = np.stack([tw[l * e] for e in range(e_n)], 1)
+    ws = [tw[(l & (h - 1)) * (nfft // (2 * h))]
+          for h in (w_n >> (r + 1) for r in range(logw))]
+    rng = np.random.default_rng(nfft)
+    x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    v = _warp_edft(x[l[:, None] + w_n * np.arange(e_n)[None, :]], e_n,
+                   False) * w1
+    for r in range(logw):
+        h = w_n >> (r + 1)
+        q = v[lanes ^ h]
+        v = np.where((l & h)[:, None] != 0, (q - v) * ws[r][:, None], v + q)
+    np.testing.assert_allclose(v, np.fft.fft(x)[bins], atol=1e-5)
+    spec = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    c = spec[bins]
+    for r in reversed(range(logw)):
+        h = w_n >> (r + 1)
+        up = (l & h)[:, None] != 0
+        t = np.where(up, c * np.conj(ws[r])[:, None], c)
+        q = t[lanes ^ h]
+        c = np.where(up, q - t, t + q)
+    c = _warp_edft(c * np.conj(w1), e_n, True)
+    n_idx = l[:, None] + w_n * np.arange(e_n)[None, :]
+    ref = np.exp(2j * np.pi * np.outer(np.arange(nfft), np.arange(nfft)) /
+                 nfft) @ spec
+    np.testing.assert_allclose(c, ref[n_idx], atol=1e-5)
+    # every bin, and every delay, once among the lanes of a window
+    assert sorted(bins[:w_n].ravel()) == list(range(nfft))
+    assert sorted(n_idx[:w_n].ravel()) == list(range(nfft))
