@@ -55,6 +55,24 @@ there.
 gap: chunked == whole buffer, ``push_many`` == pushes, no host
 synchronisation in a chunk step.
 
+Then the 2x2 paths.  ``mimo_run``: ``make_mimo_chain`` (SpMult) and
+``make_stcode_chain`` (Alamouti) at tests/test_mimo.py's configuration,
+128 frames a step, and at the reference's 2x2 profile WIFIMIMOSM-A with
+synch_dat (2, 2), 1024 frames, over the 2x2 Fading channel at 100 dB: every
+frame locked with BER 0, one K4 launch a step (the direct route, ZC slice
+0) and no other kernel, kernel path == plain path, no host synchronisation
+in a step; WIFIMIMOSM-A also at its own 50 dB, kernel and plain paths
+within 1e-4 of the bits; K4 against its plain versions at the step's
+search shape.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
+flat and a Fading 2x2 channel delayed by 40 samples, noise-free (every key
+recovered) and at 40 dB, both locks as expected in every exchange.
+``native_check``: an LTE1024 stream made on the card, written from the host
+into the native ring in pieces of at most 4095 samples and pumped in
+chunks of 65280 into ``ReacqStreamingRx`` on the card: the same outputs as
+the chunks pushed from the card and as the plain receiver on the ring's
+chunks, every block detected with its bits; K4 and K2 against their plain
+versions at this single stream's shapes.
+
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
@@ -135,6 +153,27 @@ TRACKER_GAP_FRAME = 2         # ... 37 samples after this frame's start,
                               # (PERF.md, section 6)
 CHASE_BYTES = 4 << 20         # pointer-chase ring: in the L2, beyond the L1
 CHASE_STEPS = 1 << 14
+# 2x2 MIMO cells: name, configuration, frames a step.  The test config is
+# tests/test_mimo.py:_cfg() (GOLDEN64's numerology, synch_dat (2, 2), 48
+# symbols); WIFIMIMOSM-A is the reference's 2x2 profile (SDRScript.py:28-41)
+# with synch_dat (2, 2), which the 2x2 pilots need; its own 50 dB runs too.
+MIMO_CELLS = (("MIMO test cfg", None, 128), ("WIFIMIMOSM-A", 1, 1024))
+# PLS: exchanges a batch (bench_generations.py:67), the delay past the cp
+# and the search's span (tests/test_pls.py), the AWGN of that test
+PLS_BATCH = 256
+PLS_DELAY = 40
+PLS_MAX_DELAY = 64
+PLS_SNR_DB = 40.0
+PLS_ROUNDS = 3
+# the reference's 2x2 Fading taps, unnormalised ([rx][tx]; the PLS channel
+# normalises each pair), MultiAntennaSystem.py:69-74
+MIMO2_FADING = (
+    ((0.3977, 0.7954 - 0.3977j, -0.1988, 0.0994, -0.0398), (0.8423j, 0.5391)),
+    ((0.1631, -0.0815 + 0.9784j, 0.0978),
+     (0.0572j, 0.3659j, 0.5717 - 0.5717j, 0.4574)))
+# the native ring feeding the serving receiver: LTE1024, 16 chunks of 65280,
+# written in pieces of at most 4095 samples (the reference's work quantum)
+NATIVE = ("LTE1024", 65280, 16, 4095)
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "ofdm_mod": ("lte_gnu_radio_code_tpu_torch/csrc/ofdm_mod.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/ofdm_mod.py:165"),
@@ -233,14 +272,16 @@ def fft_flops(rows: int, nfft: int) -> float:
     return rows * 5.0 * nfft * np.log2(nfft)
 
 
-def sync_checks(cfg, batch, rxs, n_trials, cell) -> dict:
+def sync_checks(cfg, batch, rxs, n_trials, cell, zc=None) -> dict:
     """K4 at one main-path shape: the route the rule gives it, the kernel
     against the conv-bank twin (timed, with the twin's conv1d alone as the
     library call), against the FFT-form plain version, and all three
     against a float64 evaluation of the FFT form; bytes, operations and
     bound of the function (the operations of its cheapest known form,
     whichever kernel ran), the product form's bound beside it, and the
-    other route's kernel timed on the same input."""
+    other route's kernel timed on the same input.  ``zc``: the ZC sequence
+    searched for (None: the config's own; the MIMO search gives a slice of
+    a longer one)."""
     import torch.nn.functional as F
     from lte_gnu_radio_code_tpu_torch.kernels import fft, sync_search
     from lte_gnu_radio_code_tpu_torch.ops import fast_sync
@@ -252,7 +293,7 @@ def sync_checks(cfg, batch, rxs, n_trials, cell) -> dict:
         raise AssertionError(f"{cell}: sync_search route {kind!r}, expected "
                              f"{want!r} at stride {cfg.stride}")
     before = dict(sync_search.route_launches)
-    k = sync_search.sync_corr_abs(cfg, rxs, n_trials)
+    k = sync_search.sync_corr_abs(cfg, rxs, n_trials, zc)
     other = "fft" if kind == "direct" else "direct"
     if (sync_search.route_launches[kind] != before[kind] + 1 or
             sync_search.route_launches[other] != before[other]):
@@ -269,22 +310,26 @@ def sync_checks(cfg, batch, rxs, n_trials, cell) -> dict:
     if fft.takes_fft(cfg.nfft) and cfg.cp_len + 1 <= cfg.nfft:
         least_ops = min(direct_ops,
                         sync_search.fft_ops(cfg.nfft, cfg.m_synch))
-    w = device_table(fast_sync._conv_weights, rxs.device, cfg)
+    w = device_table(fast_sync._conv_weights, rxs.device, cfg,
+                     fast_sync.zc_key(zc))
     xr = planar(rxs[:, cfg.cp_len:])
     r = compare(
-        "sync_search", lambda: sync_search.sync_corr_abs(cfg, rxs, n_trials),
-        lambda: sync_search.sync_corr_abs_plain(cfg, rxs, n_trials), (rxs,),
+        "sync_search",
+        lambda: sync_search.sync_corr_abs(cfg, rxs, n_trials, zc),
+        lambda: sync_search.sync_corr_abs_plain(cfg, rxs, n_trials, zc),
+        (rxs,),
         ops=float(batch * n_trials * least_ops),
         library_fn=lambda: F.conv1d(xr, w, stride=cfg.stride), **tol)
     r["kernel_route"] = kind
     direct_bound_ms = bound(r["bytes"],
                             float(batch * n_trials * direct_ops))[0]
     r["other_route_ms"] = event_ms(
-        lambda: sync_search._launch(other, cfg, rxs, n_trials), TIMING_REPS)
-    ko = sync_search._launch(other, cfg, rxs, n_trials)
+        lambda: sync_search._launch(other, cfg, rxs, n_trials, zc),
+        TIMING_REPS)
+    ko = sync_search._launch(other, cfg, rxs, n_trials, zc)
 
-    twin = sync_search.sync_corr_abs_plain(cfg, rxs, n_trials)
-    fplain = sync_search.sync_corr_abs_fft_plain(cfg, rxs, n_trials)
+    twin = sync_search.sync_corr_abs_plain(cfg, rxs, n_trials, zc)
+    fplain = sync_search.sync_corr_abs_fft_plain(cfg, rxs, n_trials, zc)
     for what, v in (("FFT-form plain version", fplain),
                     (f"{other} kernel", ko)):
         if not torch.allclose(k, v, **tol):
@@ -294,7 +339,7 @@ def sync_checks(cfg, batch, rxs, n_trials, cell) -> dict:
     errs = {"kernel": 0.0, "other": 0.0, "twin": 0.0, "fft_plain": 0.0}
     for i in range(0, batch, 8):      # float64 FFT form, 8 frames at a time
         ref = fast_sync.sync_corr_abs_fft(
-            cfg, rxs[i:i + 8].to(torch.complex128), n_trials)
+            cfg, rxs[i:i + 8].to(torch.complex128), n_trials, zc)
         for key, v in (("kernel", k), ("other", ko), ("twin", twin),
                        ("fft_plain", fplain)):
             errs[key] = max(errs[key],
@@ -934,30 +979,9 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell)
 
     # -- the selection's launches, K4 and K2 alone at this shape -------------
-    lag = rt.reacq_lag(cfg)
-    ext = streams[:, chunk_len - lag:2 * chunk_len].contiguous()
-    t_per = chunk_len // max(1, cfg.stride)
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, "kernel")
-    local_ptrs = cfg.cp_len + max(1, cfg.stride) * torch.arange(t_per,
-                                                                 device=dev)
-    crossing = dmax_val > sync.gate_level(cfg)
-    carry = (torch.zeros(batch, dtype=torch.int32, device=dev),
-             torch.zeros(batch, dtype=torch.bool, device=dev))
-
-    def select():
-        return sync.refractory_table(cfg, crossing, (local_ptrs, dmax_ind,
-                                                     dmax_val), rx.det_max,
-                                     cfg.cp_len, *carry)
-
+    ext, t_per, select, win, coeff, count = step_inputs(cfg, streams,
+                                                        chunk_len, rx.det_max)
     sel = count_launches(select)
-    _, (l_ptrs, delays, _), count, _ = select()
-    valid = torch.arange(rx.det_max, device=dev) < count[:, None]
-    _, _, dwin, coeff = stream_rx.detection_rows(
-        cfg, ext, l_ptrs, delays, valid, ext.shape[-1], "dft")
-    nd, nb = cfg.synch_dat[1], cfg.num_data_bins
-    win = dwin.reshape(-1, cfg.nfft)
-    coeff = coeff[:, :, None, :].expand(batch, rx.det_max, nd, nb).reshape(
-        -1, nb).contiguous()
     print(f"{cell}: device busy {busy:.3f} of {step_ms:.3f} ms a chunk "
           f"step: idle share {1 - busy / step_ms:.3f}; {launches:.1f} device "
           f"launches a step, of which the jump selection "
@@ -970,6 +994,42 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     print_kernel_rows(cell, checks)
     graph_replay(cfg, chunks, rx.det_max, many, step_ms, cell)
     return counts, checks
+
+
+def step_inputs(cfg, streams, chunk_len, det_max) -> tuple:
+    """What K4 and K2 get in a multi-detection receiver's second chunk step
+    on streams [B, n]: ext [B, lag + chunk_len] and its trials, the jump
+    selection as a closure (run once here), K2's windows [rows, nfft] with
+    one coefficient row each, and the detections a stream [B]."""
+    from lte_gnu_radio_code_tpu_torch.models import stream_rx
+    from lte_gnu_radio_code_tpu_torch.ops import sync
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+
+    batch, dev = streams.shape[0], streams.device
+    lag = rt.reacq_lag(cfg)
+    ext = streams[:, chunk_len - lag:2 * chunk_len].contiguous()
+    t_per = chunk_len // max(1, cfg.stride)
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, "kernel")
+    local_ptrs = cfg.cp_len + max(1, cfg.stride) * torch.arange(t_per,
+                                                                 device=dev)
+    crossing = dmax_val > sync.gate_level(cfg)
+    carry = (torch.zeros(batch, dtype=torch.int32, device=dev),
+             torch.zeros(batch, dtype=torch.bool, device=dev))
+
+    def select():
+        return sync.refractory_table(cfg, crossing, (local_ptrs, dmax_ind,
+                                                     dmax_val), det_max,
+                                     cfg.cp_len, *carry)
+
+    _, (l_ptrs, delays, _), count, _ = select()
+    valid = torch.arange(det_max, device=dev) < count[:, None]
+    _, _, dwin, coeff = stream_rx.detection_rows(
+        cfg, ext, l_ptrs, delays, valid, ext.shape[-1], "dft")
+    nd, nb = cfg.synch_dat[1], cfg.num_data_bins
+    win = dwin.reshape(-1, cfg.nfft)
+    coeff = coeff[:, :, None, :].expand(batch, det_max, nd, nb).reshape(
+        -1, nb).contiguous()
+    return ext, t_per, select, win, coeff, count
 
 
 def config_of(source, changes):
@@ -1917,6 +1977,305 @@ def cli_check(dev) -> None:
     file_check(dev)
 
 
+def mimo_config(sdr_profile):
+    """A MIMO cell's configuration at 100 dB and its own SNR: the test
+    configuration (None) or an SDR profile's, by its index."""
+    import dataclasses
+    from lte_gnu_radio_code_tpu_torch.utils import params
+    if sdr_profile is None:
+        own = params.OFDMConfig(synch_dat=(2, 2), num_ofdm_symb=48,
+                                num_ant_txrx=2, snr_db=100.0).validate()
+    else:
+        own = dataclasses.replace(params.config_from_profile(
+            params.SDR_PROFILES[sdr_profile]), synch_dat=(2, 2)).validate()
+    return dataclasses.replace(own, snr_db=100.0).validate(), own
+
+
+def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
+    """Both 2x2 modes at one configuration (module docstring): the chain as
+    a user builds it (``make_mimo_chain`` / ``make_stcode_chain``, on the
+    card), timed over rounds of CHAIN_REPS steps; every frame locked with
+    BER 0, one K4 launch a step on the direct route and no other kernel,
+    kernel path == plain path on one noise tensor, no host synchronisation
+    in a step; at the configuration's own SNR kernel and plain paths within
+    1e-4 of the bits; K4 against its plain versions at the step's search
+    shape (ZC slice 0).  Returns the cells' entries of the kernels line."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+    from lte_gnu_radio_code_tpu_torch.models import mimo
+    from lte_gnu_radio_code_tpu_torch.ops import channel
+
+    cfg, own = mimo_config(sdr_profile)
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, _ = mimo.plan(cfg, n)
+    h = torch.as_tensor(channel.mimo2_taps("Fading"), device=dev)
+    entries = []
+    for mode, make, tx in (("SpMult", mimo.make_mimo_chain,
+                            mimo.tx_frame_mimo),
+                           ("STCode", mimo.make_stcode_chain,
+                            mimo.tx_frame_stcode)):
+        cell = f"{name} {mode} b{batch}"
+        shape = (batch, 2) if mode == "SpMult" else (batch,)
+        rng = np.random.default_rng(SEED + 7)
+        bits = torch.as_tensor(rng.integers(0, 2, (*shape, cfg.num_bits),
+                                            dtype=np.int32), device=dev)
+        step = make(cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step(bits, generator=gen)                       # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(CHAIN_ROUNDS):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = [step(bits ^ (i & 1), generator=gen)
+                       for i in range(CHAIN_REPS)]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        dt = sorted(times)[len(times) // 2]
+        counts = kernels.launch_counts()
+        routes = dict(sync_search.route_launches)
+        found = torch.stack([r.found for r in results])
+        ber = torch.stack([r.ber for r in results])
+        locks = torch.stack([r.lock_ptr for r in results]).unique().tolist()
+        if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                       "sync_search": CHAIN_REPS} or
+                routes != {"fft": 0, "direct": CHAIN_REPS}):
+            raise AssertionError(f"{cell}: launches {counts}, sync_search by "
+                                 f"route {routes} over {CHAIN_REPS} steps, "
+                                 "expected one direct K4 launch a step")
+        if not bool(found.all()) or float(ber.max()) != 0.0:
+            raise AssertionError(f"{cell}: {int((~found).sum())} frames "
+                                 f"unlocked, worst BER {float(ber.max())}")
+
+        noise = torch.complex(torch.randn(batch, 2, n, generator=gen,
+                                          device=dev),
+                              torch.randn(batch, 2, n, generator=gen,
+                                          device=dev))
+        rk = step(bits, noise=noise)
+        rp = make(cfg, plain=True)(bits, noise=noise)
+        for f in ("found", "lock_ptr", "delay_idx", "hard_bits"):
+            if not torch.equal(getattr(rk, f), getattr(rp, f)):
+                raise AssertionError(f"{cell}: kernel vs plain path: {f} "
+                                     "differs")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(bits, generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        step_ms = dt * 1e3 / CHAIN_REPS
+        msps = CHAIN_REPS * batch * 2 * n / dt / 1e6
+        rounds = ", ".join(f"{t * 1e3 / CHAIN_REPS:.3f}" for t in times)
+        print(f"{cell}: {CHAIN_REPS} steps of {batch} frames x 2 antennas x "
+              f"{n} samples: {step_ms:.3f} ms a step (median of rounds "
+              f"{rounds}), {msps:.3f} Msamples/s (both RX antennas) on "
+              f"{gpu}; all frames locked (lock_ptr {locks}), BER 0; "
+              f"launches {counts}, sync_search by route {routes}; kernel "
+              "path == plain path in found, lock, delay and bits; a step "
+              "under torch's sync debug mode \"error\"")
+        busy, launches = profile(lambda i: step(bits, generator=gen), cell)
+        print(f"{cell}: device busy {busy:.3f} of {step_ms:.3f} ms a step: "
+              f"idle share {1 - busy / step_ms:.3f}; {launches:.1f} device "
+              "launches a step")
+
+        if own.snr_db != cfg.snr_db:
+            rk = make(own)(bits, noise=noise)
+            rp = make(own, plain=True)(bits, noise=noise)
+            differ = float((rk.hard_bits != rp.hard_bits).float().mean())
+            if (not bool(rk.found.all()) or not bool(rp.found.all()) or
+                    differ > 1e-4):
+                raise AssertionError(f"{cell} at {own.snr_db} dB: "
+                                     f"{int((~rk.found).sum())} frames "
+                                     f"unlocked, {differ} of the bits "
+                                     "differ between kernel and plain paths")
+            print(f"{cell} at {own.snr_db} dB: all frames locked, BER "
+                  f"{float(rk.ber.mean()):.3e} (kernel) "
+                  f"{float(rp.ber.mean()):.3e} (plain) on one noise; "
+                  f"{differ:.2e} of the bits differ (allowed 1e-4)")
+
+        sig = tx(cfg, bits)
+        clean = channel.apply_channel_mimo(sig, h, max_impulse=cfg.nfft)
+        y = channel.awgn(cfg, clean, (sig.abs() ** 2).mean((-2, -1))[
+            ..., None, None], generator=gen)
+        c = sync_checks(mimo.search_config(cfg), batch,
+                        y[:, 0].contiguous(), n_trials, cell,
+                        zc=mimo._search_zc(cfg))
+        print_kernel_rows(cell, {"sync_search": c})
+        entries.append(kernel_entry("sync_search", cell,
+                                    counts["sync_search"], c))
+    return entries
+
+
+def pls_channels():
+    """(name, h [2, 2, taps], the lock the search must find): the flat 2x2
+    and the reference's 2x2 Fading, each delayed by PLS_DELAY
+    (tests/test_pls.py).  Through the Fading taps the strongest arrival,
+    |tap| summed over the four pairs after each pair's normalisation, is
+    the one the lock finds."""
+    flat = np.zeros((2, 2, PLS_DELAY + 1), complex)
+    flat[:, :, PLS_DELAY] = [[1.0 + 0.2j, 0.45j], [0.3 - 0.1j, 0.9 + 0.3j]]
+    taps = max(len(t) for row in MIMO2_FADING for t in row)
+    fading = np.zeros((2, 2, PLS_DELAY + taps), complex)
+    for r in range(2):
+        for t in range(2):
+            f = np.asarray(MIMO2_FADING[r][t])
+            fading[r, t, PLS_DELAY:PLS_DELAY + len(f)] = f
+    strongest = np.argmax(np.sum(np.abs(fading) / np.linalg.norm(
+        fading, axis=-1, keepdims=True), axis=(0, 1)))
+    return (("flat", flat, PLS_DELAY),
+            ("Fading", fading, int(strongest)))
+
+
+def pls_run(dev, gpu) -> None:
+    """``key_exchange_synced`` on PLSConfig(), PLS_BATCH exchanges a call,
+    each with its own key bits, over the delayed channels: noise-free every
+    exchange recovers its key, with AWGN at PLS_SNR_DB at most 1 % of the
+    key bits are wrong, and Bob's and Alice's locks are the expected ones
+    in every exchange; times of a call (median of PLS_ROUNDS), exchanges
+    and samples a second, busy and idle share, launches."""
+    from lte_gnu_radio_code_tpu_torch.models import pls
+    from lte_gnu_radio_code_tpu_torch.utils.params import PLSConfig
+
+    cfg = PLSConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    keys = torch.randint(0, 2, (PLS_BATCH, cfg.pvt_info_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ext = cfg.frame_len + PLS_MAX_DELAY
+    for name, h, want in pls_channels():
+        for snr in (None, PLS_SNR_DB):
+            cell = (f"PLS {name} delay {PLS_DELAY}, "
+                    f"{'noise-free' if snr is None else f'{snr} dB'}, "
+                    f"b{PLS_BATCH}")
+
+            def call(i=0):
+                return pls.key_exchange_synced(cfg, keys, gen, h, snr,
+                                               PLS_MAX_DELAY)
+            call()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(PLS_ROUNDS):
+                t0 = time.perf_counter()
+                bits, err, (pb, pa) = call()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            dt = sorted(times)[len(times) // 2]
+            n_err = int(err.sum())
+            if (bits.device.type != dev.type or
+                    not bool((pb == want).all()) or
+                    not bool((pa == want).all()) or
+                    n_err > (0 if snr is None else 0.01 * keys.numel())):
+                raise AssertionError(f"{cell}: {n_err} key bits wrong in "
+                                     f"{int((err > 0).sum())} exchanges; "
+                                     f"locks {pb.unique().tolist()} / "
+                                     f"{pa.unique().tolist()}, expected "
+                                     f"{want}")
+            samples = PLS_BATCH * 2 * cfg.num_ant * ext      # two hops
+            print(f"{cell}: {n_err} key bits wrong, locks Bob "
+                  f"{pb.unique().tolist()} Alice {pa.unique().tolist()} "
+                  f"(expected {want}); {dt * 1e3:.3f} ms a call (rounds "
+                  f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+                  f"{PLS_BATCH / dt:.1f} exchanges/s, "
+                  f"{samples / dt / 1e6:.3f} Msamples/s through the two "
+                  f"hops, on {gpu}")
+            if name == "flat" and snr is None:
+                busy, launches = profile(call, cell)
+                print(f"{cell}: device busy {busy:.3f} of {dt * 1e3:.3f} ms "
+                      f"a call: idle share {1 - busy / (dt * 1e3):.3f}; "
+                      f"{launches:.1f} device launches a call")
+
+
+def native_check(dev, gpu) -> tuple:
+    """The host ingest path: one LTE1024 stream made on the card, copied to
+    the host, written into a NativeRing in uneven pieces of at most 4095
+    samples, and pumped by a NativeChunker in chunks of 65280 into a
+    ReacqStreamingRx on the card.  Its outputs equal those of the same
+    chunks pushed from the card and, but for float rounding, those of the
+    plain receiver (conv, dft) on the ring's chunks; every whole pattern
+    block is detected once with the sent bits, one K4 and one K2 launch a
+    step; times of the whole path and of a step fed from the ring's host
+    chunks.  Returns (cell, launch counts of the ring-fed run, K4 and K2
+    against their plain versions at this path's shapes)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.runtime import native
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg_name, chunk, k, quantum = NATIVE
+    cfg = getattr(params, cfg_name)
+    cell = f"{cfg_name} native ring, chunk {chunk} x {k}"
+    streams, bits = make_streams(cfg, 1, k * chunk, dev)
+    host = streams[0].cpu()
+    sizes = np.random.default_rng(SEED + 9).integers(1, quantum + 1,
+                                                     len(host))
+    ring = native.NativeRing(4 * chunk)
+    chunker = native.NativeChunker(ring, chunk)
+    rx = rt.ReacqStreamingRx(cfg, chunk)
+    rx.push(torch.zeros(chunk, dtype=torch.complex64))      # warm-up
+    rx = rt.ReacqStreamingRx(cfg, chunk)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs, host_chunks, pos, i = [], [], 0, 0
+    t0 = time.perf_counter()
+    while pos < len(host):
+        pos += ring.write(host[pos:pos + sizes[i]])
+        i += 1
+        while (c := chunker.pump()) is not None:
+            host_chunks.append(c)
+            outs.append(rx.push(c))
+    outs += rx.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    direct = rt.ReacqStreamingRx(cfg, chunk)
+    ref = [direct.push(c) for c in streams[0].reshape(k, chunk)]
+    ref += direct.finish()
+    got = stack_outs(outs)
+    same_outs(got, stack_outs(ref), f"{cell}: ring-fed vs pushed directly")
+    plain_rx = rt.ReacqStreamingRx(cfg, chunk, fast="conv", demod_path="dft")
+    before = kernels.launch_counts()
+    plain = [plain_rx.push(c) for c in host_chunks] + plain_rx.finish()
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{cell}: the plain receiver launched a kernel")
+    worst = same_outs(got, stack_outs(plain), f"{cell}: ring-fed kernel vs "
+                      "plain receiver", float_atol=2e-4, skip=("peaks",))
+    if (len(host_chunks) != k or chunker.staged or
+            counts["sync_search"] != len(outs) or
+            counts["equalize"] != len(outs)):
+        raise AssertionError(f"{cell}: {len(host_chunks)} chunks pumped "
+                             f"({chunker.staged} staged), launches {counts} "
+                             f"over {len(outs)} steps")
+    check_detections(cfg, type(got)(*(f[:, None] for f in got)), bits,
+                     k * chunk, cell)
+    prx = rt.ReacqStreamingRx(cfg, chunk)
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for c in host_chunks:
+            prx.push(c)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3 / k)
+    step_ms = sorted(times)[len(times) // 2]
+    busy, launches = profile(lambda j: prx.push(host_chunks[j % k]), cell)
+    print(f"{cell}: {i} writes of at most {quantum} samples, {k} chunks "
+          f"pumped; outputs == the chunks pushed from the card; kernel "
+          f"receiver == plain receiver (conv, dft) on the ring's chunks: "
+          f"ptrs, delays, valid, demod_ok, hard bits equal, phasors and "
+          f"chans within {worst:.2e} (allowed 2e-4); launches "
+          f"{counts}; the whole path (ring writes, pumps, pushes, flush) "
+          f"{wall * 1e3:.3f} ms, {k * chunk / wall / 1e6:.3f} Msamples/s; a "
+          f"step fed from a host chunk {step_ms:.3f} ms (rounds "
+          f"{', '.join(f'{t:.3f}' for t in times)}), "
+          f"{chunk / step_ms / 1e3:.3f} Msamples/s; device busy "
+          f"{busy:.3f} ms a step, idle share {1 - busy / step_ms:.3f}, "
+          f"{launches:.1f} device launches a step, on {gpu}")
+    ext, t_per, _, win, coeff, _ = step_inputs(cfg, streams, chunk,
+                                               rx.det_max)
+    checks = {"sync_search": sync_checks(cfg, 1, ext, t_per, cell),
+              "equalize": equalize_check(cfg, win, coeff)}
+    print_kernel_rows(cell, checks)
+    return cell, counts, checks
+
+
 def kernel_entry(name, cell, launches, c) -> dict:
     """One entry of the ``kernels`` line: the main path's launch count and
     what :func:`compare` measured."""
@@ -1986,6 +2345,12 @@ def main() -> int:
     entries += tracker_run(dev, gpu, load_ms)
     entries.append(tracker_block_run(dev, gpu, load_ms))
     tracker_stream_run(dev, gpu)
+    for name, sdr_profile, batch in MIMO_CELLS:
+        entries += mimo_run(name, sdr_profile, batch, dev, gpu)
+    pls_run(dev, gpu)
+    cell, counts, checks = native_check(dev, gpu)
+    for name, c in checks.items():
+        entries.append(kernel_entry(name, cell, counts[name], c))
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {

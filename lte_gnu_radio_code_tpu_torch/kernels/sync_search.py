@@ -19,7 +19,10 @@ alone:
   long as one trial's taps fit in a block's shared memory (the library's
   ``sync_search_direct_fits`` says); ``ValueError`` otherwise.
 
-Neither kernel falls back to the other or to a plain version.
+Neither kernel falls back to the other or to a plain version.  The ZC
+sequence the search correlates with is a parameter (default
+``zc_for_config(cfg)``); its tables are cached on the config and the
+sequence's bytes (``ops.fast_sync.zc_key``).
 ``sync_corr_abs_fft_plain`` is the FFT route's plain version, used by the
 tests and ``chip_smoke.py`` only.
 """
@@ -76,17 +79,18 @@ def route(nfft: int, cp: int, stride: int, m_synch: int) -> str:
 
 
 @functools.lru_cache(maxsize=32)
-def _kernels_t(cfg: OFDMConfig) -> np.ndarray:
+def _kernels_t(cfg: OFDMConfig, key: bytes | None = None) -> np.ndarray:
     """[klen, cp+1] correlation kernels, tap-major for the direct kernel."""
-    return np.ascontiguousarray(fast_sync._kernels(cfg).T)
+    return np.ascontiguousarray(fast_sync._kernels(cfg, key).T)
 
 
-def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor,
-            n_trials: int) -> torch.Tensor:
+def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+            zc=None) -> torch.Tensor:
     """Launch the kernel of route ``kind`` on a CUDA tensor (the wrapper's
     CUDA branch; tests and ``chip_smoke.py`` call it to hold either kernel
     at a shape the rule gives to the other)."""
     global launches
+    key = fast_sync.zc_key(zc)
     x2 = x.reshape(-1, x.shape[-1])
     b, n = x2.shape
     _cuda.check(x2, "x", torch.complex64, (b, n))
@@ -100,7 +104,7 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor,
             raise ValueError(f"cp {cp} >= nfft {nfft}: the FFT route reads "
                              "the delays from one length-nfft inverse")
         args = ("sync_search_fft", dev, x2.data_ptr(), b, n,
-                device_table(fast_sync._zc_by_bin, dev, cfg).data_ptr(),
+                device_table(fast_sync._zc_by_bin, dev, cfg, key).data_ptr(),
                 device_table(fft.twiddles, dev, nfft).data_ptr(),
                 out.data_ptr(), n_trials, cp, cfg.stride, nfft, m0,
                 cfg.rx_b_len, big_l)
@@ -110,7 +114,7 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor,
             raise ValueError(f"nfft {nfft}, cp {cp}, m_synch {m0}: one "
                              "trial's taps do not fit in shared memory")
         args = ("sync_search_direct", dev, x2.data_ptr(), b, n,
-                device_table(_kernels_t, dev, cfg).data_ptr(), nd,
+                device_table(_kernels_t, dev, cfg, key).data_ptr(), nd,
                 out.data_ptr(), n_trials, cp, cfg.stride, nfft, m0,
                 cfg.rx_b_len, big_l)
     else:
@@ -122,11 +126,12 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor,
     return out.reshape(*x.shape[:-1], n_trials, nd)
 
 
-def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor,
-                  n_trials: int) -> torch.Tensor:
+def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+                  zc=None) -> torch.Tensor:
     """|corr| [n_trials, cp+1] for x [n], [B, n_trials, cp+1] for x [B, n]
-    (``sync_search.sync_corr_abs``, batched over frames).  A CPU tensor
-    takes the plain twin; a CUDA tensor takes the kernel that
+    (``sync_search.sync_corr_abs``, batched over frames), against the ZC
+    sequence ``zc`` (None: ``zc_for_config(cfg)``).  A CPU tensor takes the
+    plain twin; a CUDA tensor takes the kernel that
     ``route(nfft, cp, stride, m_synch)`` names, or raises."""
     if cfg.num_synch_bins != cfg.nfft - 2:
         raise ValueError("Parseval normalisation requires the canonical "
@@ -134,6 +139,6 @@ def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor,
     if cfg.rx_b_len % 2:
         raise ValueError("the (-1)^n window sign needs even nfft+cp")
     if _cuda.on_cpu(x):
-        return sync_corr_abs_plain(cfg, x, n_trials)
+        return sync_corr_abs_plain(cfg, x, n_trials, zc)
     return _launch(route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch),
-                   cfg, x, n_trials)
+                   cfg, x, n_trials, zc)

@@ -1,7 +1,8 @@
 """Channel simulation ops in torch: multipath convolution and AWGN.
 
 Port of ``lte_gnu_radio_code_tpu/ops/channel.py`` (``channel_taps``,
-``apply_channel``, ``noise_variance``, ``awgn``); the MIMO channel waits.
+``apply_channel``, ``noise_variance``, ``awgn``, and the 2x2 channel:
+``mimo2_taps``, ``apply_channel_mimo``).
 Random numbers come from an explicit ``torch.Generator`` or from a noise
 tensor the caller made, so tests can hand one numpy noise array to both
 packages.
@@ -74,6 +75,54 @@ def apply_channel(sig: torch.Tensor, h: np.ndarray,
         y = torch.fft.ifft(torch.fft.fft(sig, nfft) * torch.fft.fft(hh, nfft),
                            nfft)[..., :n_out]
     return F.pad(y, (0, n_out - y.shape[-1])).to(torch.complex64)
+
+
+def mimo2_taps(name: str = "Fading", dtype=np.complex64) -> np.ndarray:
+    """[2, 2, 5] unit-norm 2x2 CIRs, [rx, tx, tap]
+    (``channel.py:mimo2_taps``, MultiAntennaSystem.py:69-74); "Ideal" is
+    the all-ones (rank-1) matrix of one tap."""
+    h = np.zeros((2, 2, 5), dtype=np.complex128)
+    h[0, 0, :] = [0.3977, 0.7954 - 0.3977j, -0.1988, 0.0994, -0.0398]
+    h[0, 1, :2] = [0.8423j, 0.5391]
+    h[1, 0, :3] = [0.1631, -0.0815 + 0.9784j, 0.0978]
+    h[1, 1, :4] = [0.0572j, 0.3659j, 0.5717 - 0.5717j, 0.4574]
+    if name == "Ideal":
+        h[:] = 0
+        h[:, :, 0] = 1
+    h /= np.linalg.norm(h, axis=-1, keepdims=True)
+    return h.astype(dtype)
+
+
+def apply_channel_mimo(sig: torch.Tensor, h,
+                       max_impulse: int | None = None) -> torch.Tensor:
+    """[..., n_tx, T] x h [n_rx, n_tx, taps] -> [..., n_rx, T + taps - 1]
+    summed over the TX antennas (``channel.py:apply_channel_mimo``), the
+    tail past the true taps zero where ``max_impulse`` is longer.  h is a
+    numpy array or a tensor; a tensor on sig's device costs no copy from
+    the host.  Up to 256 taps one real conv1d whose input channels are the
+    TX antennas' I/Q rails and whose output channels are the RX antennas'
+    (conv1d correlates, so the taps are flipped); an FFT product above."""
+    h = torch.as_tensor(h, device=sig.device).to(torch.complex64)
+    n_rx, n_tx, th = h.shape
+    taps = th if max_impulse is None else max(max_impulse, th)
+    lead, n = sig.shape[:-2], sig.shape[-1]
+    n_out = n + taps - 1
+    if th <= 256:
+        x = torch.cat([sig.real, sig.imag], -2).reshape(-1, 2 * n_tx, n)
+        hf = h.flip(-1)
+        k = torch.cat([torch.cat([hf.real, -hf.imag], 1),
+                       torch.cat([hf.imag, hf.real], 1)], 0)  # [2R, 2T, th]
+        _cuda.require_fp32(sig.device)
+        y = F.conv1d(x, k.contiguous(), padding=th - 1)
+        out = torch.complex(y[:, :n_rx], y[:, n_rx:]).reshape(
+            *lead, n_rx, -1)
+    else:
+        nfft = int(2 ** np.ceil(np.log2(max(n_out, 2))))
+        s = torch.fft.fft(sig, nfft)                       # [..., T, F]
+        hh = torch.fft.fft(h, nfft)                        # [R, T, F]
+        out = torch.fft.ifft(torch.einsum("...tf,rtf->...rf", s, hh),
+                             nfft)[..., :n_out]
+    return F.pad(out, (0, n_out - out.shape[-1])).to(torch.complex64)
 
 
 def noise_variance(cfg: OFDMConfig, sig_pow):

@@ -14,6 +14,11 @@ window, a multiply by conj(ZC) on the synch bins and one inverse FFT
 (``ops/sync.py``: ``sync_spectra`` + ``sync_correlate_ifft`` in one pass).
 It is the plain version of K4's FFT route; nothing on the main path calls
 it.
+
+Both take an optional ZC sequence ``zc`` (default ``zc_for_config(cfg)``,
+of length m_synch * num_synch_bins): the MIMO receivers search with one
+slice of a longer sequence (``models/mimo.py``).  Every table built from
+it is cached on the config and :func:`zc_key`, the sequence's bytes.
 """
 
 from __future__ import annotations
@@ -30,8 +35,28 @@ from ..utils.tables import device_table
 from .zadoff_chu import zc_for_config
 
 
+def zc_key(zc) -> bytes | None:
+    """The cache key of a ZC sequence: its complex64 bytes; None stands for
+    the config's own sequence."""
+    if zc is None:
+        return None
+    return np.ascontiguousarray(zc, np.complex64).tobytes()
+
+
+def _zc_of(cfg: OFDMConfig, key: bytes | None) -> np.ndarray:
+    """The ZC sequence a :func:`zc_key` stands for, checked against the
+    config's m_synch * num_synch_bins."""
+    if key is None:
+        return zc_for_config(cfg)
+    zc = np.frombuffer(key, np.complex64)
+    if len(zc) != cfg.m_synch * cfg.num_synch_bins:
+        raise ValueError(f"ZC sequence of {len(zc)} samples: the search "
+                         f"correlates {cfg.m_synch} x {cfg.num_synch_bins}")
+    return zc
+
+
 @functools.lru_cache(maxsize=32)
-def _kernels(cfg: OFDMConfig) -> np.ndarray:
+def _kernels(cfg: OFDMConfig, key: bytes | None = None) -> np.ndarray:
     """[cp+1, klen] complex64 correlation kernels K_d
     (``fast_sync._kernels``):  K_d[l (N+cp) + n] =
     sum_k e^{-j 2pi b_k (n - d) / N} conj(ZC[l L + k]), computed as one
@@ -39,7 +64,7 @@ def _kernels(cfg: OFDMConfig) -> np.ndarray:
     nfft, cp, m0 = cfg.nfft, cfg.cp_len, cfg.m_synch
     _, bins_p = used_bins(nfft, cfg.num_synch_bins)
     b = np.asarray(bins_p)
-    zc = zc_for_config(cfg).astype(np.complex128)
+    zc = _zc_of(cfg, key).astype(np.complex128)
     L = cfg.num_synch_bins
     klen = (m0 - 1) * cfg.rx_b_len + nfft
     out = np.zeros((cp + 1, klen), dtype=np.complex128)
@@ -53,9 +78,9 @@ def _kernels(cfg: OFDMConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _conv_weights(cfg: OFDMConfig) -> np.ndarray:
+def _conv_weights(cfg: OFDMConfig, key: bytes | None = None) -> np.ndarray:
     """[2D, 2, klen] real conv weights: out channels [re x D, im x D]."""
-    k = _kernels(cfg)
+    k = _kernels(cfg, key)
     d = k.shape[0]
     w = np.zeros((2 * d, 2, k.shape[1]), np.float32)
     w[:d, 0], w[:d, 1] = k.real, -k.imag          # re = xr*kr - xi*ki
@@ -76,17 +101,18 @@ def _box_sums(x: torch.Tensor, nfft: int, stride: int):
             s[:, 3] ** 2 + s[:, 4] ** 2)
 
 
-def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor,
-                       n_trials: int) -> torch.Tensor:
+def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+                       zc=None) -> torch.Tensor:
     """|corr| [..., n_trials, cp+1] for x [..., n]
-    (``fast_sync.sync_corr_abs_fast``)."""
+    (``fast_sync.sync_corr_abs_fast``), against ``zc`` (module
+    docstring)."""
     if cfg.num_synch_bins != cfg.nfft - 2:
         raise ValueError("Parseval normalisation requires the canonical "
                          "all-but-DC/Nyquist synch bins")
     lead = x.shape[:-1]
     x = x.reshape(-1, x.shape[-1])
     _cuda.require_fp32(x.device)
-    w = device_table(_conv_weights, x.device, cfg)
+    w = device_table(_conv_weights, x.device, cfg, zc_key(zc))
     d = w.shape[0] // 2
     L = cfg.m_synch * cfg.num_synch_bins
     cp, s = cfg.cp_len, cfg.stride
@@ -106,22 +132,23 @@ def sync_corr_abs_fast(cfg: OFDMConfig, x: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=32)
-def _zc_by_bin(cfg: OFDMConfig) -> np.ndarray:
+def _zc_by_bin(cfg: OFDMConfig, key: bytes | None = None) -> np.ndarray:
     """[m_synch, nfft] complex64: conj(ZC[l L + k]) at FFT index b_k of
     synch window l, zero off the synch bins."""
     L = cfg.num_synch_bins
     bins = np.asarray(used_bins(cfg.nfft, L)[1])
     out = np.zeros((cfg.m_synch, cfg.nfft), np.complex64)
-    out[:, bins] = np.conj(zc_for_config(cfg)).reshape(cfg.m_synch, L)
+    out[:, bins] = np.conj(_zc_of(cfg, key)).reshape(cfg.m_synch, L)
     return out
 
 
-def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor,
-                      n_trials: int) -> torch.Tensor:
+def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+                      zc=None) -> torch.Tensor:
     """|corr| [..., n_trials, cp+1] for x [..., n] in the FFT form: per
     trial, |N ifft(sum_l fft(window_l) conj(ZC_l))[d]| * sqrt(L /
     max(sum_l sum_k |fft(window_l)[b_k]|^2, 1e-30)), d <= cp.
-    Samples past the buffer read as zeros.  Computes in x's precision
+    Samples past the buffer read as zeros; ``zc`` as in the module
+    docstring.  Computes in x's precision
     (complex64, or complex128 for a float64 evaluation)."""
     if cfg.cp_len >= cfg.nfft:
         raise ValueError("the FFT form reads delays 0..cp from one "
@@ -134,7 +161,7 @@ def sync_corr_abs_fft(cfg: OFDMConfig, x: torch.Tensor,
     need = cp + (n_trials - 1) * s + (m0 - 1) * cfg.rx_b_len + nfft
     if need > x.shape[1]:
         x = F.pad(x, (0, need - x.shape[1]))
-    zc = device_table(_zc_by_bin, x.device, cfg).to(x.dtype)
+    zc = device_table(_zc_by_bin, x.device, cfg, zc_key(zc)).to(x.dtype)
     on_bins = zc[0] != 0
     y, power = 0.0, 0.0
     for l in range(m0):

@@ -11,7 +11,11 @@ short stream: K4 and K2 at a chunk step's shapes, and the receivers on the
 kernel path against the plain path.  The other receiver generations are
 held the same way: K2 with the rotation alone against ``torch.fft`` at the
 pilot shapes, and the kernel path against the plain path for the QAM chain,
-the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``:
+the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
+MIMO chains: K4 at ZC slice 0 on both routes, the kernel path against the
+plain path, one K4 launch a step, no host synchronisation; a batch of PLS
+key exchanges on the card; the native ring's chunks into a receiver on
+the card:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -26,14 +30,16 @@ from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import (_cuda, channel_conv,
                                                   equalize, fft, ofdm_mod,
                                                   sync_search)
-from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, rxofdm,
-                                                 split, stream_rx, txofdm)
+from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, mimo,
+                                                 rxofdm, split, stream_rx,
+                                                 txofdm)
 from lte_gnu_radio_code_tpu_torch.ops import channel, pilots, sync
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 from lte_gnu_radio_code_tpu_torch.utils.params import (CFO_CASES, DSSS_CASES,
                                                        GOLDEN64, LTE1024,
-                                                       LTE2048,
+                                                       LTE2048, SDR_PROFILES,
                                                        config_from_case,
+                                                       config_from_profile,
                                                        used_bins)
 
 pytestmark = pytest.mark.cuda
@@ -831,3 +837,131 @@ def test_tracker_stream_on_the_card(dev):
         seq.push(x[:chunk])
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# -- 2x2 MIMO, PLS and the native ring on the card ------------------------------
+
+MIMO_CFGS = pytest.mark.parametrize("cfg", [
+    dataclasses.replace(GOLDEN64, synch_dat=(2, 2), num_ofdm_symb=48,
+                        num_ant_txrx=2),
+    dataclasses.replace(config_from_profile(SDR_PROFILES[1]),
+                        synch_dat=(2, 2), snr_db=100.0)],
+    ids=["test-cfg", "wifimimosm-a"])
+
+
+@MIMO_CFGS
+@pytest.mark.parametrize("kind", ["direct", "fft"])
+def test_k4_at_zc_slice_zero(dev, cfg, kind):
+    """K4 at the MIMO search's shape (the single-synch view, ZC slice 0 of
+    the two-symbol sequence) on both routes, forced, against the twin and
+    the FFT-form plain version at the same slice; the slice's result is
+    not the one at the single-synch config's own sequence."""
+    cfg1 = mimo.search_config(cfg)
+    zc0 = mimo._search_zc(cfg)
+    n = cfg.frame_len + cfg.nfft - 1
+    x = _cplx(dev, 50, 5, n)
+    n_trials = sync.n_trials_for(cfg1, n)
+    out = sync_search._launch(kind, cfg1, x, n_trials, zc=zc0)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_plain(cfg1, x, n_trials, zc=zc0),
+        **K4_TOL)
+    torch.testing.assert_close(
+        out, sync_search.sync_corr_abs_fft_plain(cfg1, x, n_trials, zc=zc0),
+        **K4_TOL)
+    own = sync_search._launch(kind, cfg1, x, n_trials)
+    assert float((own - out).abs().max()) > 0.1
+    assert sync_search.route(cfg1.nfft, cfg1.cp_len, cfg1.stride,
+                             cfg1.m_synch) == "direct"
+
+
+@MIMO_CFGS
+@pytest.mark.parametrize("mode", ["spmult", "stcode"])
+def test_mimo_kernel_path_equals_plain_path(dev, cfg, mode):
+    """Both chains on the card, K4 against its twin on one noise tensor at
+    the config's SNR and at 12 dB: lock, delay and bits equal; one K4
+    launch a step, on the direct route; at 100 dB every frame locked with
+    BER 0; a step under torch's sync debug mode "error"."""
+    make = mimo.make_mimo_chain if mode == "spmult" else \
+        mimo.make_stcode_chain
+    n = cfg.frame_len + cfg.nfft - 1
+    shape = (16, 2) if mode == "spmult" else (16,)
+    bits = torch.from_numpy(np.random.default_rng(51).integers(
+        0, 2, (*shape, cfg.num_bits), dtype=np.int32)).to(dev)
+    for snr in (100.0, 12.0):
+        c = dataclasses.replace(cfg, snr_db=snr)
+        noise = _cplx(dev, 52, 16, 2, n)
+        kernels.reset_launch_counts()
+        before = dict(sync_search.route_launches)
+        rk = make(c)(bits, noise=noise)
+        assert kernels.launch_counts()["sync_search"] == 1
+        assert sync_search.route_launches == {
+            **before, "direct": before["direct"] + 1}
+        rp = make(c, plain=True)(bits, noise=noise)
+        assert kernels.launch_counts()["sync_search"] == 1
+        for f in ("found", "lock_ptr", "delay_idx", "hard_bits"):
+            assert torch.equal(getattr(rk, f), getattr(rp, f)), (snr, f)
+        if snr == 100.0:
+            assert bool(rk.found.all()) and float(rk.ber.max()) == 0.0
+            assert bool((rk.lock_ptr == cfg.cp_len).all())
+    step = make(cfg)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    step(bits, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(bits, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_pls_exchange_on_the_card(dev):
+    """A batch of synced key exchanges on the card, the delayed flat
+    channel past the cp: zero errors, both locks at the delay; the same
+    unitaries give the same bits as on the CPU."""
+    from lte_gnu_radio_code_tpu_torch.models import pls as mpls
+    from lte_gnu_radio_code_tpu_torch.ops import pls as opls
+    from lte_gnu_radio_code_tpu_torch.utils.params import PLSConfig
+
+    cfg = PLSConfig()
+    keys = torch.from_numpy(np.random.default_rng(54).integers(
+        0, 2, (32, 8), dtype=np.int32)).to(dev)
+    h = np.zeros((2, 2, 41), complex)
+    h[:, :, 40] = [[1.0 + 0.2j, 0.45j], [0.3 - 0.1j, 0.9 + 0.3j]]
+    gen = torch.Generator(device=dev).manual_seed(55)
+    bits, err, (pb, pa) = mpls.key_exchange_synced(cfg, keys, gen, h,
+                                                   max_delay=64)
+    assert bits.device.type == "cuda" and int(err.sum()) == 0
+    assert bool((pb == 40).all()) and bool((pa == 40).all())
+    u = opls.random_unitary(gen, (32, cfg.num_data_symb, cfg.num_subbands),
+                            2)
+    on_card = mpls.key_exchange_synced(cfg, keys, None, h, max_delay=64,
+                                       unitaries=u)
+    on_cpu = mpls.key_exchange_synced(cfg, keys.cpu(), None, h,
+                                      max_delay=64, unitaries=u.cpu(),
+                                      device="cpu")
+    assert torch.equal(on_card[0].cpu(), on_cpu[0])
+
+
+def test_native_chunks_feed_the_card_receiver(dev):
+    """Chunks pumped from the native ring (CPU tensors) into the serving
+    receiver on the card give the outputs of the same chunks pushed from
+    the card."""
+    from lte_gnu_radio_code_tpu_torch.runtime import native
+
+    cfg, chunk, k = GOLDEN64, 4800, 4
+    x = _streams(cfg, dev, 1, k * chunk, seed=56)[0]
+    host = x.cpu()
+    ring = native.NativeRing(1 << 15)
+    chunker = native.NativeChunker(ring, chunk)
+    rx = rt.ReacqStreamingRx(cfg, chunk)
+    outs, pos = [], 0
+    while pos < len(host):
+        pos += ring.write(host[pos:pos + 4095])
+        while (c := chunker.pump()) is not None:
+            outs.append(rx.push(c))
+    ref = rt.ReacqStreamingRx(cfg, chunk)
+    direct = [ref.push(c) for c in x.reshape(k, chunk)]
+    assert len(outs) == k
+    for a, b in zip(outs, direct):
+        for f, g in zip(a, b):
+            assert torch.equal(f, g)
