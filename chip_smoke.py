@@ -73,6 +73,30 @@ the chunks pushed from the card and as the plain receiver on the ring's
 chunks, every block detected with its bits; K4 and K2 against their plain
 versions at this single stream's shapes.
 
+Then the sharded runtime (``parallel/``: t shards stacked on the card,
+one K4 and one K2 launch a call or chunk step whatever t is).
+``sharded_rx_run``: one frame made on the card, GOLDEN64 at t = 2, 4 and 8,
+LTE1024 and LTE2048 at t = 4: found, lock, delay and bits equal to the
+plain path's and to the single-device ``rx_frame``'s, phasors within 2e-4,
+the peak within K4's tolerance.  ``sharded_chain_run``: the dp x t chain
+at GOLDEN64 batch 128 (t = 2) and LTE1024 batch 32 (t = 4): on one noise
+tensor BER, found and lock equal to ``chain_batch``'s, BER 0, one launch
+of each of K1-K4 a step.
+``sharded_stream_run``: ``ShardedReacqStreamingRx`` on an LTE1024 stream
+(16 chunks of 65280, t = 4) and a GOLDEN64 one (4 of 65520, t = 8): equal
+to ``ReacqStreamingRx`` on the same chunks and to ``rx_detections`` on the
+whole buffer, every block detected once with the sent bits, ``push_many``
+== pushes, no host synchronisation in a step.  ``sharded_legacy_run``:
+``ShardedLegacyStreamingRx`` at CFO case 7 (+1500 Hz, t = 4) and DSSS case
+9 (t = 2) against ``LegacyStreamingRx`` on the same chunks.  Each prints
+ms a step, busy, idle share and launches beside its unsharded twin's from
+the same run, and holds K4 and K2 to their plain versions on what the
+sharded path handed them.  ``multihost_run``: two processes of this script
+(``--multihost-worker``) on the one card over gloo, dp = 2 x t = 2, 16
+LTE1024 frames each: every frame locked with BER 0, the gathered results
+== one process's chain on the same noise; beside them a process group of
+one on the default backend, NCCL (``--nccl-worker``).
+
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
@@ -80,6 +104,7 @@ repository.  The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
@@ -174,6 +199,19 @@ MIMO2_FADING = (
 # the native ring feeding the serving receiver: LTE1024, 16 chunks of 65280,
 # written in pieces of at most 4095 samples (the reference's work quantum)
 NATIVE = ("LTE1024", 65280, 16, 4095)
+# the sharded runtime (parallel/), t shards stacked on the card: the RX on
+# one frame (config, shard counts); the dp x t chain (config, frames, t) at
+# the chain cells' batches; the reacq stream (config, chunk, chunks, t) at
+# the serving chunks; the legacy stream (case table, case, candidates,
+# injected CFO, chunk, t) at the legacy chunks; two processes on the card
+# over gloo (config, frames a process, t)
+SHARDED_RX = (("GOLDEN64", (2, 4, 8)), ("LTE1024", (4,)), ("LTE2048", (4,)))
+SHARDED_CHAIN = (("GOLDEN64", 128, 2), ("LTE1024", 32, 4))
+SHARDED_STREAMS = (("LTE1024", 65280, 16, 4), ("GOLDEN64", 65520, 4, 8))
+SHARDED_LEGACY = (("CFO_CASES", 7, (0.0, -1500.0, 1500.0), 1500.0, 63488, 4),
+                  ("DSSS_CASES", 9, (0.0,), 0.0, 129024, 2))
+MULTIHOST = ("LTE1024", 16, 2)
+MULTIHOST_TIMEOUT_S = 300
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "ofdm_mod": ("lte_gnu_radio_code_tpu_torch/csrc/ofdm_mod.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/ofdm_mod.py:165"),
@@ -570,10 +608,10 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
             "launches": counts}
 
 
-def profile(step, cell, reps=3) -> tuple[float, float]:
-    """Device time per step by kernel, from a :func:`trace` of reps steps;
-    returns the device's busy ms and its launches (kernels and copies) per
-    step."""
+def profile(step, cell, reps=3, top=12) -> tuple[float, float]:
+    """Device time per step by kernel, from a :func:`trace` of reps steps,
+    the top kernels and host operators printed; returns the device's busy
+    ms and its launches (kernels and copies) per step."""
     prof, seen, made = trace(lambda: [step(i) for i in range(reps)])
     # device kernels only: an operator's row repeats its kernels' time
     rows = sorted(((e.self_device_time_total, e.key)
@@ -585,8 +623,11 @@ def profile(step, cell, reps=3) -> tuple[float, float]:
     print(f"{cell}: profile of {reps} steps, {len(rows)} device kernels in "
           f"{launches:.1f} launches a step ({seen} device events for {made} "
           f"launch calls of the host"
-          f"{'' if seen >= made else ': THE TRACE LOST EVENTS'}):")
-    for t, key in rows[:12]:
+          f"{'' if seen >= made else ': THE TRACE LOST EVENTS'})"
+          f"{':' if top else ''}")
+    if not top:
+        return total / reps / 1e3, launches
+    for t, key in rows[:top]:
         print(f"  {t / reps / 1e3:9.4f} ms/step {100 * t / total:5.1f}%  "
               f"{key[:90]}")
     # the host's side: operators by their own CPU time (profiler on)
@@ -641,6 +682,18 @@ def count_launches(fn) -> int:
         print(f"count_launches: THE TRACE LOST EVENTS ({seen} device events "
               f"for {made} launch calls)")
     return seen
+
+
+def no_host_sync(rx, chunk, cell) -> None:
+    """One push of chunk into receiver rx under torch's sync debug mode
+    "error": it raises if anything in the step waits for the host."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rx.push(chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{cell}: a chunk step ran with torch's sync debug mode set to "
+          "\"error\": nothing in it waits for the host")
 
 
 def make_streams(cfg, batch, n_samples, dev):
@@ -805,6 +858,33 @@ def graph_replay(cfg, chunks, det_max, ref, eager_ms, cell) -> None:
           f"eager: {eager_ms / ms:.2f}x")
 
 
+def same_as_whole(cfg, outs, stream, n_real, what) -> int:
+    """Chunk outputs [steps, det_max, ...] of one stream against
+    ``rx_detections`` on the whole buffer (kernel path), up to its last
+    detection (the flush probes further): pointers, delays, demod_ok and
+    hard bits equal, phasors within 2e-4.  Returns its detections."""
+    from lte_gnu_radio_code_tpu_torch.models import stream_rx
+    from lte_gnu_radio_code_tpu_torch.ops import sync
+
+    whole = stream_rx.rx_detections(
+        cfg, stream, sync.n_trials_for(cfg, n_real),
+        max_det=n_real // (cfg.pattern_len * cfg.rx_b_len) + 2,
+        fast="kernel", demod_path="kernel")
+    nb = int(whole.count)
+    v = outs.valid.reshape(-1)
+    keep = v & (outs.ptrs.reshape(-1) <= whole.ptrs[:nb].max())
+    pick = keep.nonzero()[:, 0]
+    for name in ("ptrs", "delays", "demod_ok", "hard_bits", "phasors"):
+        x = getattr(outs, name).reshape(len(v), -1)[pick]
+        y = getattr(whole, name)[:nb].reshape(nb, -1)
+        if x.shape != y.shape or (
+                float((x - y).abs().max()) > 2e-4 if x.dtype.is_complex
+                else not torch.equal(x, y)):
+            raise AssertionError(f"{what} chunk by chunk vs rx_detections "
+                                 f"on its whole buffer: {name}")
+    return nb
+
+
 def single_lock_check(cfg, chunks, bits, cell) -> None:
     """The single-lock StreamingRx on one stream, on the card by default:
     it locks on a pattern block (the first whose trial grid gives it a
@@ -851,8 +931,6 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     K4 and K2 against their plain versions at this shape)."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
-    from lte_gnu_radio_code_tpu_torch.models import stream_rx
-    from lte_gnu_radio_code_tpu_torch.ops import sync
     from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 
     n_real = k * chunk_len
@@ -927,22 +1005,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
                         stack_outs(second.finish())])
     same_outs(resumed, type(alone)(*(f[half:] for f in alone)),
               f"{cell}: resumed vs uninterrupted")
-    whole = stream_rx.rx_detections(
-        cfg, streams[b], sync.n_trials_for(cfg, n_real),
-        max_det=n_real // (cfg.pattern_len * cfg.rx_b_len) + 2,
-        fast="kernel", demod_path="kernel")
-    nb = int(whole.count)
-    v = alone.valid.reshape(-1)
-    keep = v & (alone.ptrs.reshape(-1) <= whole.ptrs[:nb].max())
-    pick = keep.nonzero()[:, 0]
-    for name in ("ptrs", "delays", "demod_ok", "hard_bits", "phasors"):
-        x = getattr(alone, name).reshape(len(v), -1)[pick]
-        y = getattr(whole, name)[:nb].reshape(nb, -1)
-        if x.shape != y.shape or (
-                float((x - y).abs().max()) > 2e-4 if x.dtype.is_complex
-                else not torch.equal(x, y)):
-            raise AssertionError(f"{cell}: stream {b} chunk by chunk vs "
-                                 f"rx_detections on its whole buffer: {name}")
+    nb = same_as_whole(cfg, alone, streams[b], n_real, f"{cell}: stream {b}")
     print(f"{cell}: push_many == {k} pushes exactly; stream {b} alone == "
           f"its row of the batch (floats within {werr:.1e}); saved after "
           f"{half} chunks, loaded into a new receiver, continued == "
@@ -951,13 +1014,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     single_lock_check(cfg, chunks[:3, 0], bits[0], cell)
 
     # -- no step waits for the host ------------------------------------------
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        srx.push(chunks[0])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print(f"{cell}: a chunk step ran with torch's sync debug mode set to "
-          "\"error\": nothing in it waits for the host")
+    no_host_sync(srx, chunks[0], cell)
 
     # -- timing: Msamples/s of a push_many ending in a synchronize -----------
     times = []
@@ -1310,33 +1367,16 @@ def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
           f"max(1, |value|), allowed 2e-4)")
 
     # -- no step waits for the host -------------------------------------------
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        srx.push(chunks[0])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print(f"{cell}: a chunk step ran with torch's sync debug mode set to "
-          "\"error\": nothing in it waits for the host")
+    no_host_sync(srx, chunks[0], cell)
     if not timed:
         return cell, counts["equalize"], None
 
     # -- timing, profile, and K2 alone at this shape --------------------------
-    times = []
-    for _ in range(SERVING_ROUNDS):
-        trx = make()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trx.push_many(chunks)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    dt = sorted(times)[len(times) // 2]
-    step_ms = dt * 1e3 / k
-    rounds = ", ".join(f"{t * 1e3 / k:.3f}" for t in times)
-    print(f"{cell}: push_many of {k} chunks: {n_real / dt / 1e6:.3f} "
-          f"Msamples/s, {step_ms:.3f} ms a chunk step (median of rounds "
-          f"{rounds}) on {gpu}")
-    prof_rx = make()
-    busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell)
+    step_ms, times, busy, launches = stream_times(make, chunks, cell, top=12)
+    rounds = ", ".join(f"{t:.3f}" for t in times)
+    print(f"{cell}: push_many of {k} chunks: "
+          f"{n_real / step_ms / 1e3:.3f} Msamples/s, {step_ms:.3f} ms a chunk "
+          f"step (median of rounds {rounds}) on {gpu}")
     print(f"{cell}: device busy {busy:.3f} of {step_ms:.3f} ms a chunk step: "
           f"idle share {1 - busy / step_ms:.3f}; {launches:.1f} device "
           f"launches a step on {gpu}")
@@ -2276,6 +2316,535 @@ def native_check(dev, gpu) -> tuple:
     return cell, counts, checks
 
 
+def wall_ms(fn, reps=CHAIN_REPS) -> tuple[float, list]:
+    """Host ms a call of fn(i), each round of reps calls ending in a
+    synchronize: (the median of CHAIN_ROUNDS rounds, every round's)."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(CHAIN_ROUNDS):
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
+    return sorted(times)[len(times) // 2], times
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """What the path run inside hands K4's and K2's wrappers:
+    {"sync_search": [(x, n_trials), ...], "equalize": [(win, coeff), ...]},
+    call by call."""
+    from lte_gnu_radio_code_tpu_torch.kernels import equalize, sync_search
+
+    seen = {"sync_search": [], "equalize": []}
+    k4, k2 = sync_search.sync_corr_abs, equalize.demod_windows
+
+    def search(cfg, x, n_trials, zc=None):
+        seen["sync_search"].append((x, n_trials))
+        return k4(cfg, x, n_trials, zc)
+
+    def demod(cfg, win, coeff):
+        seen["equalize"].append((win, coeff))
+        return k2(cfg, win, coeff)
+
+    sync_search.sync_corr_abs, equalize.demod_windows = search, demod
+    try:
+        yield seen
+    finally:
+        sync_search.sync_corr_abs, equalize.demod_windows = k4, k2
+
+
+def sharded_checks(cfg, seen, cell, step=0) -> dict:
+    """K4 and K2 against their plain versions on what the sharded path
+    handed them in its step-th call (:func:`kernel_inputs`); K4's rows are
+    the shards (of every frame)."""
+    out = {}
+    if seen["sync_search"]:
+        x, n_trials = seen["sync_search"][step]
+        x = x.reshape(-1, x.shape[-1])
+        out["sync_search"] = sync_checks(cfg, x.shape[0], x, n_trials, cell)
+    win, coeff = seen["equalize"][step]
+    out["equalize"] = equalize_check(cfg, win, coeff)
+    print_kernel_rows(cell, out)
+    return out
+
+
+def fit_halo(cfg, t):
+    """Double the symbol count until each of t shards covers the halo
+    (``__graft_entry__.py:fit_halo``)."""
+    import dataclasses
+    from lte_gnu_radio_code_tpu_torch.parallel import sharded
+    while cfg.frame_len // t < sharded.halo_size(cfg):
+        cfg = dataclasses.replace(
+            cfg, num_ofdm_symb=2 * cfg.num_ofdm_symb).validate()
+    return cfg
+
+
+def twin_line(cell, what, ms, busy, launches, twin, t_ms, t_busy,
+              t_launches, gpu) -> str:
+    return (f"{cell}: {what} {ms:.3f} ms a step, device busy {busy:.3f}, "
+            f"idle share {1 - busy / ms:.3f}, {launches:.1f} device launches "
+            f"a step; {twin} at the same shape in this run {t_ms:.3f} ms, "
+            f"busy {t_busy:.3f}, idle share {1 - t_busy / t_ms:.3f}, "
+            f"{t_launches:.1f} launches; sharded / unsharded "
+            f"{ms / t_ms:.3f}x, on {gpu}")
+
+
+def sharded_rx_run(dev, gpu) -> list:
+    """The time-sharded RX (``parallel/sharded.py``) on one frame made on
+    the card (K1, K3, AWGN 100 dB) at each SHARDED_RX shape: one K4 and one
+    K2 launch a call on the route the rule names; found, lock, delay and
+    hard bits equal to the plain path's (conv, dft) and to the
+    single-device ``rx_frame`` on the kernels, phasors within 2e-4 and the
+    peak within K4's tolerance, the bits the sent ones; K4 and K2 against
+    their plain versions on what the sharded call handed them; ms a call
+    beside ``rx_frame``'s.  Returns the ``kernels`` line's entries."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+    from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh, sharded
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    entries = []
+    for cfg_name, shard_counts in SHARDED_RX:
+        for t in shard_counts:
+            cfg = fit_halo(getattr(params, cfg_name), t)
+            cell = f"{cfg_name} sharded RX t{t}"
+            gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+            bits = torch.randint(0, 2, (1, cfg.num_bits), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            x = chain.transmit(cfg, chain.loopback_taps(cfg), bits,
+                               generator=gen)[0]
+            n = x.shape[0]
+            n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+            rx = sharded.make_sharded_rx(cfg, n, mesh.time_mesh(t))
+            rx(x)                                       # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            r = rx(x)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            routes = dict(sync_search.route_launches)
+            want = sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride,
+                                     cfg.m_synch)
+            if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                          "sync_search": 1, "equalize": 1} or \
+                    routes != {"fft": 0, "direct": 0, want: 1}:
+                raise AssertionError(f"{cell}: launches {counts}, by route "
+                                     f"{routes}, expected one K4 ({want}) "
+                                     "and one K2")
+            plain = sharded.make_sharded_rx(cfg, n, mesh.time_mesh(t),
+                                            fast="conv", demod_path="dft")(x)
+
+            def single(i=0):
+                return rxofdm.rx_frame(cfg, x, n_trials, num_patterns,
+                                       fast="kernel", eq="kernel")
+
+            worst = peak_err = 0.0
+            peak_tol = (dict(atol=2e-3, rtol=0.0) if cfg.stride == 1
+                        else dict(atol=3e-3, rtol=2e-4))   # K4's, as compare
+            for what, ref in (("plain path", plain),
+                              ("single-device rx_frame", single())):
+                for name in ("found", "lock_ptr", "delay_idx", "hard_bits"):
+                    if not torch.equal(getattr(r, name), getattr(ref, name)):
+                        raise AssertionError(f"{cell}: {name} differs from "
+                                             f"the {what}'s")
+                err = float((r.phasors - ref.phasors).abs().max())
+                worst = max(worst, err)
+                if err > 2e-4:
+                    raise AssertionError(f"{cell}: phasors differ from the "
+                                         f"{what}'s by {err}")
+                peak_err = max(peak_err, float((r.peak - ref.peak).abs()))
+                if not torch.allclose(r.peak, ref.peak, **peak_tol):
+                    raise AssertionError(f"{cell}: peak {float(r.peak)}, the "
+                                         f"{what}'s {float(ref.peak)}")
+            nb = min(r.hard_bits.shape[-1], cfg.num_bits)
+            if not bool(r.found) or not torch.equal(r.hard_bits[:nb],
+                                                    bits[0, :nb]):
+                raise AssertionError(f"{cell}: found {bool(r.found)}, "
+                                     f"{int((r.hard_bits[:nb] != bits[0, :nb]).sum())}"
+                                     " bits differ from the sent ones")
+            ms, rounds = wall_ms(lambda i: rx(x))
+            one_ms, _ = wall_ms(single)
+            busy, launches = profile(lambda i: rx(x), cell, top=0)
+            one_busy, one_launches = profile(single, cell, top=0)
+            print(f"{cell} ({n} samples, {n // t} a shard + halo "
+                  f"{sharded.halo_size(cfg)}): locked at "
+                  f"{int(r.lock_ptr)}, delay {int(r.delay_idx)}, bits == sent "
+                  f"bits; == plain path and == rx_frame in found, lock, "
+                  f"delay, bits, phasors within {worst:.2e}, peak within "
+                  f"{peak_err:.2e}; launches {counts} on the {want} route; "
+                  f"rounds {', '.join(f'{v:.3f}' for v in rounds)}")
+            print(twin_line(cell, "a call", ms, busy, launches, "rx_frame",
+                            one_ms, one_busy, one_launches, gpu))
+            with kernel_inputs() as seen:
+                rx(x)
+            for name, c in sharded_checks(cfg, seen, cell).items():
+                entries.append(kernel_entry(name, cell, counts[name], c))
+    return entries
+
+
+def sharded_chain_run(cfg_name, batch, t, dev, gpu) -> tuple:
+    """The dp x t chain (``parallel/chain.py``) at one shape, dp 2 in this
+    process: on one noise tensor found, lock and BER equal to
+    ``chain_batch``'s, every frame locked with BER 0; one launch of each of
+    K1-K4 a step; ms a step and Msamples/s (median of three rounds of 20)
+    beside ``chain_batch``'s.  Returns (cell, launches of a step, K4 and K2
+    at the sharded shapes)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
+    from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg = fit_halo(getattr(params, cfg_name), t)
+    cell = f"{cfg_name} dp2 x t{t} chain b{batch}"
+    rng = np.random.default_rng(SEED + 1)
+    bits = torch.as_tensor(rng.integers(0, 2, (batch, cfg.num_bits),
+                                        dtype=np.int32), device=dev)
+    h = chain.loopback_taps(cfg)
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+    step = pchain.make_sharded_chain(cfg, mesh.make_mesh(2 * t, dp=2))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    noise = torch.complex(torch.randn(batch, n, generator=gen, device=dev),
+                          torch.randn(batch, n, generator=gen, device=dev))
+    step(bits, noise=noise)                             # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ber, found, lock = step(bits, noise=noise)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}:
+        raise AssertionError(f"{cell}: launches {counts}, expected one of "
+                             "each of K1-K4")
+    if not bool(found.all()) or float(ber.max()) != 0.0:
+        raise AssertionError(f"{cell}: {int((~found).sum())} frames "
+                             f"unlocked, worst BER {float(ber.max())}")
+    if not (torch.equal(ber, ref.ber) and torch.equal(found, ref.found) and
+            torch.equal(lock, ref.lock_ptr)):
+        raise AssertionError(f"{cell}: BER, found or lock differ from "
+                             "chain_batch's on the same noise")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def sharded_step(i):
+        return step(bits ^ (i & 1), generator=gen)
+
+    def batch_step(i):
+        return chain.chain_batch(cfg, h, n_trials, num_patterns,
+                                 bits ^ (i & 1), generator=gen)
+
+    ms, rounds = wall_ms(sharded_step)
+    b_ms, b_rounds = wall_ms(batch_step)
+    busy, launches = profile(sharded_step, cell, top=0)
+    b_busy, b_launches = profile(batch_step, cell, top=0)
+    msps = batch * n / ms / 1e3
+    print(f"{cell}: all {batch} frames locked, BER 0, BER / found / lock == "
+          f"chain_batch's on the same noise; launches {counts}; "
+          f"{msps:.3f} Msamples/s (chain_batch {batch * n / b_ms / 1e3:.3f}); "
+          f"rounds {', '.join(f'{v:.3f}' for v in rounds)} (chain_batch "
+          f"{', '.join(f'{v:.3f}' for v in b_rounds)})")
+    print(twin_line(cell, "sharded chain", ms, busy, launches, "chain_batch",
+                    b_ms, b_busy, b_launches, gpu))
+    with kernel_inputs() as seen:
+        step(bits, noise=noise)
+    return cell, counts, sharded_checks(cfg, seen, cell)
+
+
+def stream_times(make, chunks, cell, top=0):
+    """ms a chunk step of a push_many on a fresh receiver from make()
+    (median of SERVING_ROUNDS, and every round's), and busy ms and
+    launches a step from a profile of single pushes (its top kernels
+    printed)."""
+    k = len(chunks)
+    times = []
+    for _ in range(SERVING_ROUNDS):
+        rx = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx.push_many(chunks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / k)
+    prof_rx = make()
+    busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell,
+                             top=top)
+    return sorted(times)[len(times) // 2], times, busy, launches
+
+
+def sharded_stream_run(cfg_name, chunk_len, k, t, dev, gpu) -> tuple:
+    """``ShardedReacqStreamingRx`` (``parallel/streaming.py``) on one
+    stream made on the card: == ``ReacqStreamingRx`` on the same chunks
+    (every integer field, floats within 2e-4) and == ``rx_detections`` on
+    the whole buffer; every whole pattern block detected once with the
+    sent bits; ``push_many`` == pushes; one K4 (on the rule's route) and
+    one K2 launch a step; no host synchronisation in a step; ms a step
+    beside the unsharded receiver's.  Returns (cell, launch counts of the
+    main-path run, K4 and K2 at the sharded shapes)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh, streaming
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg = getattr(params, cfg_name)
+    cell = f"{cfg_name} sharded stream t{t}, chunk {chunk_len} x {k}"
+    n_real = k * chunk_len
+    streams, bits = make_streams(cfg, 1, n_real, dev)
+    chunks = streams[0].reshape(k, chunk_len)
+    m = mesh.time_mesh(t)
+
+    def make(**kw):
+        return streaming.ShardedReacqStreamingRx(cfg, chunk_len, m, **kw)
+
+    make().push(chunks[0])                              # warm-up
+    rx = make()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    outs = cat_outs([many, stack_outs(rx.finish())])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    routes = dict(sync_search.route_launches)
+    steps = outs.valid.shape[0]
+    want = sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch)
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                  "sync_search": steps, "equalize": steps} or \
+            routes != {"fft": 0, "direct": 0, want: steps}:
+        raise AssertionError(f"{cell}: {steps} chunk steps, launches "
+                             f"{counts}, by route {routes}")
+    one = rt.ReacqStreamingRx(cfg, chunk_len)
+    ref = cat_outs([one.push_many(chunks), stack_outs(one.finish())])
+    worst = same_outs(outs, ref, f"{cell}: sharded vs ReacqStreamingRx",
+                      float_atol=2e-4)
+    check_detections(cfg, type(outs)(*(f[:, None] for f in outs)), bits,
+                     n_real, cell)
+    nb = same_as_whole(cfg, outs, streams[0], n_real, cell)
+    srx = make()
+    same_outs(stack_outs([srx.push(c) for c in chunks]), many,
+              f"{cell}: pushes vs push_many")
+    print(f"{cell}: {steps} chunk steps (det_max {rx.det_max}): launches "
+          f"{counts} on the {want} route; == ReacqStreamingRx on the same "
+          f"chunks (integer fields equal, floats within {worst:.2e} of "
+          f"max(1, |value|)); == rx_detections on the whole buffer ({nb} "
+          f"detections); push_many == {k} pushes exactly")
+    no_host_sync(srx, chunks[0], cell)
+    ms, rounds, busy, launches = stream_times(make, chunks, cell)
+    u_ms, _, u_busy, u_launches = stream_times(
+        lambda: rt.ReacqStreamingRx(cfg, chunk_len), chunks, cell)
+    print(f"{cell}: push_many of {k} chunks {n_real / ms / 1e3:.3f} "
+          f"Msamples/s (unsharded {n_real / u_ms / 1e3:.3f}); rounds "
+          f"{', '.join(f'{v:.3f}' for v in rounds)}")
+    print(twin_line(cell, "sharded chunk step", ms, busy, launches,
+                    "ReacqStreamingRx", u_ms, u_busy, u_launches, gpu))
+    with kernel_inputs() as seen:
+        make().push_many(chunks[:2])
+    return cell, counts, sharded_checks(cfg, seen, cell, step=1)
+
+
+def sharded_legacy_run(table, case, fo_range, cfo_hz, chunk_len, t, dev,
+                       gpu) -> tuple:
+    """``ShardedLegacyStreamingRx`` on a stream of over a million samples
+    made on the card (``make_legacy_stream``): == ``LegacyStreamingRx`` on
+    the same chunks (integer fields equal, floats within 2e-4), the
+    detections against what was sent (``check_legacy_detections``),
+    ``push_many`` == pushes, one K2 launch and no other kernel a step, no
+    host synchronisation; ms a step beside the unsharded receiver's.
+    Returns (cell, K2 launches of the main-path run, K2 at the sharded
+    shape)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh, streaming
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cases = getattr(params, table)
+    cfg = params.config_from_case(cases, case)
+    dsss = cases[case]["dsss"]
+    k = -(-LEGACY_SAMPLES // chunk_len)
+    n_real = k * chunk_len
+    cell = (f"{table[:-6]} case {case} sharded stream t{t} ({cfo_hz:+.0f} "
+            f"Hz, chunk {chunk_len} x {k})")
+    stream, sent = make_legacy_stream(cfg, n_real, dsss, cfo_hz, dev)
+    chunks = stream.reshape(k, chunk_len)
+    m = mesh.time_mesh(t)
+
+    def make(**kw):
+        return streaming.ShardedLegacyStreamingRx(
+            cfg, chunk_len, m, fo_range=fo_range, dsss=dsss, **kw)
+
+    make().push(chunks[0])                              # warm-up
+    rx = make()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    outs = cat_outs([many, stack_outs(rx.finish())])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = outs.valid.shape[0]
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+                  "equalize": steps}:
+        raise AssertionError(f"{cell}: {steps} chunk steps, launches "
+                             f"{counts}, expected one K2 launch a step and "
+                             "no other kernel")
+
+    def unsharded():
+        return rt.LegacyStreamingRx(cfg, chunk_len, fo_range=fo_range,
+                                    dsss=dsss)
+
+    one = unsharded()
+    ref = cat_outs([one.push_many(chunks), stack_outs(one.finish())])
+    worst = same_outs(outs, ref, f"{cell}: sharded vs LegacyStreamingRx",
+                      float_atol=2e-4)
+    want_fo = fo_range.index(-cfo_hz) if cfo_hz else 0
+    check_legacy_detections(cfg, outs, sent, n_real, want_fo,
+                            every_block=not cfo_hz, cell=cell)
+    srx = make()
+    same_outs(stack_outs([srx.push(c) for c in chunks]), many,
+              f"{cell}: pushes vs push_many")
+    print(f"{cell}: {steps} chunk steps (det_max {rx.det_max}): launches "
+          f"{counts}; == LegacyStreamingRx on the same chunks (integer "
+          f"fields equal, floats within {worst:.2e} of max(1, |value|)); "
+          f"push_many == {k} pushes exactly")
+    no_host_sync(srx, chunks[0], cell)
+    ms, rounds, busy, launches = stream_times(make, chunks, cell)
+    u_ms, _, u_busy, u_launches = stream_times(unsharded, chunks, cell)
+    print(f"{cell}: push_many of {k} chunks {n_real / ms / 1e3:.3f} "
+          f"Msamples/s (unsharded {n_real / u_ms / 1e3:.3f}); rounds "
+          f"{', '.join(f'{v:.3f}' for v in rounds)}")
+    print(twin_line(cell, "sharded chunk step", ms, busy, launches,
+                    "LegacyStreamingRx", u_ms, u_busy, u_launches, gpu))
+    with kernel_inputs() as seen:
+        make().push_many(chunks[:2])
+    return cell, counts["equalize"], sharded_checks(cfg, seen, cell,
+                                                     step=1)["equalize"]
+
+
+def multihost_inputs(cfg, frames, dev):
+    """The global batch's bits and noise, the same in every process."""
+    bits = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
+        0, 2, (frames, cfg.num_bits), dtype=np.int32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    n = cfg.frame_len + cfg.nfft - 1
+    noise = torch.complex(torch.randn(frames, n, generator=gen, device=dev),
+                          torch.randn(frames, n, generator=gen, device=dev))
+    return bits, noise
+
+
+def multihost_worker(pid: int, nproc: int, coord: str, out: str) -> None:
+    """One process of ``multihost_run``: gloo over tcp://coord, the dp x t
+    chain on its own frames on cuda:0, the results gathered; rank 0 writes
+    them to ``out``."""
+    import torch.distributed as dist
+    from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
+    from lte_gnu_radio_code_tpu_torch.parallel import multihost
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg_name, frames, t = MULTIHOST
+    cfg = getattr(params, cfg_name)
+    multihost.init_distributed(coord, nproc, pid, backend="gloo")
+    mesh = multihost.multihost_mesh(t=t)
+    dev = mesh.device
+    bits, noise = multihost_inputs(cfg, frames * nproc, dev)
+    ber, found, lock = pchain.make_sharded_chain(cfg, mesh)(bits,
+                                                            noise=noise)
+    if len(ber) != frames or not bool(found.all()) or float(ber.max()):
+        raise AssertionError(f"rank {pid}: {len(ber)} frames, "
+                             f"{int((~found).sum())} unlocked, worst BER "
+                             f"{float(ber.max())}")
+    ber, found, lock = multihost.gather_frames(mesh, ber, found, lock)
+    if pid == 0:
+        np.savez(out, ber=ber.numpy(), found=found.numpy(),
+                 lock=lock.numpy())
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"MULTIHOST_OK rank={pid} world={nproc} backend=gloo "
+          f"mesh=dp{mesh.shape['dp']}xt{t} frames={frames} device={dev}",
+          flush=True)
+
+
+def nccl_worker(coord: str) -> None:
+    """A world-size-1 group with the default backend on the card: NCCL."""
+    import torch.distributed as dist
+    from lte_gnu_radio_code_tpu_torch.parallel import multihost
+
+    multihost.init_distributed(coord, 1, 0)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    backend = dist.get_backend()
+    if backend != "nccl" or float(x.sum()) != 4.0:
+        raise AssertionError(f"backend {backend}, all_reduce {x.tolist()}")
+    dist.destroy_process_group()
+    print("NCCL_OK world=1", flush=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_run(dev, gpu) -> None:
+    """Two worker processes of this script on cuda:0 over gloo, dp = 2 x t
+    = 2, MULTIHOST frames each, and beside them a world-size-1 process
+    group on the default backend (NCCL; it refuses two ranks on one card).
+    Every worker exits 0 with its OK line (each frame locked, BER 0), and
+    rank 0's gathered results equal this process's chain on the same
+    injected noise."""
+    from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg_name, frames, t = MULTIHOST
+    cfg = getattr(params, cfg_name)
+    cell = f"{cfg_name} 2 processes, dp2 x t{t}, {frames} frames each"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/gathered.npz"
+        coord = f"127.0.0.1:{free_port()}"
+        argv = [[sys.executable, __file__, "--multihost-worker", str(pid),
+                 "2", coord, out] for pid in range(2)]
+        argv.append([sys.executable, __file__, "--nccl-worker",
+                     f"127.0.0.1:{free_port()}"])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(a, cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for a in argv]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=MULTIHOST_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        oks = [f"MULTIHOST_OK rank={pid} world=2" for pid in range(2)]
+        oks.append("NCCL_OK world=1")
+        for p, text, ok in zip(procs, texts, oks):
+            if p.returncode != 0 or ok not in text:
+                raise AssertionError(f"{cell}: worker exit {p.returncode}, "
+                                     f"output:\n{text[-4000:]}")
+        got = np.load(out)
+        bits, noise = multihost_inputs(cfg, 2 * frames, dev)
+        ber, found, lock = pchain.make_sharded_chain(
+            cfg, mesh.make_mesh(2 * t, dp=2))(bits, noise=noise)
+        for name, v in (("ber", ber), ("found", found), ("lock", lock)):
+            if not np.array_equal(got[name], v.cpu().numpy()):
+                raise AssertionError(f"{cell}: gathered {name} differs from "
+                                     "one process's chain")
+    for text in texts:
+        print("  " + text.strip().splitlines()[-1])
+    print(f"{cell}: both gloo workers on cuda:0 and the NCCL group of one "
+          f"exited 0 ({wall:.1f} s with start-up); every frame locked with "
+          f"BER 0; rank 0's gathered ber, found, lock == one process's "
+          f"chain on the same noise, on {gpu}")
+
+
 def kernel_entry(name, cell, launches, c) -> dict:
     """One entry of the ``kernels`` line: the main path's launch count and
     what :func:`compare` measured."""
@@ -2351,6 +2920,20 @@ def main() -> int:
     cell, counts, checks = native_check(dev, gpu)
     for name, c in checks.items():
         entries.append(kernel_entry(name, cell, counts[name], c))
+    entries += sharded_rx_run(dev, gpu)
+    for cfg_name, batch, t in SHARDED_CHAIN:
+        cell, counts, checks = sharded_chain_run(cfg_name, batch, t, dev, gpu)
+        for name, c in checks.items():
+            entries.append(kernel_entry(name, cell, counts[name], c))
+    for cfg_name, chunk_len, k, t in SHARDED_STREAMS:
+        cell, counts, checks = sharded_stream_run(cfg_name, chunk_len, k, t,
+                                                  dev, gpu)
+        for name, c in checks.items():
+            entries.append(kernel_entry(name, cell, counts[name], c))
+    for args in SHARDED_LEGACY:
+        cell, launches, check = sharded_legacy_run(*args, dev, gpu)
+        entries.append(kernel_entry("equalize", cell, launches, check))
+    multihost_run(dev, gpu)
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {
@@ -2360,4 +2943,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        multihost_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+    elif sys.argv[1:2] == ["--nccl-worker"]:
+        nccl_worker(sys.argv[2])
+    else:
+        sys.exit(main())

@@ -3,9 +3,10 @@ channel -> AWGN -> RX with the one-tap MMSE equaliser, any modulation and
 pilot grid (``models.chain.chain_batch``: the four kernels on a CUDA device,
 their plain twins on the CPU).
 
-Port of ``lte_gnu_radio_code_tpu/cli/ber_sweep.py``; its cross-check against
-the numpy oracle is not ported.  It runs on the CUDA device unless asked for
-the CPU, and raises where there is no CUDA device::
+Port of ``lte_gnu_radio_code_tpu/cli/ber_sweep.py``.  ``--check-oracle``
+also runs the numpy oracle (``reference_cpu/golden.py:run_chain``) on the
+same seeds at each point, for BPSK and QPSK.  It runs on the CUDA device
+unless asked for the CPU, and raises where there is no CUDA device::
 
     python -m lte_gnu_radio_code_tpu_torch.cli.ber_sweep --config configs/qam64_sweep.json
     python -m lte_gnu_radio_code_tpu_torch.cli.ber_sweep --modulation QAM16 --device cpu
@@ -47,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channel", default="Fading")
     p.add_argument("--num-ofdm-symb", type=int, default=240)
     p.add_argument("--frames", type=int, default=4, help="frames per point")
+    p.add_argument("--check-oracle", action="store_true",
+                   help="also run the CPU reference oracle per point")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true")
     return p
@@ -80,9 +83,16 @@ def main(argv=None):
         r = chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
                               num_patterns, bits, generator=gen)
         row = {"snr_db": float(snr), "ber": float(r.ber.mean())}
+        if args.check_oracle and cfg.modulation in ("BPSK", "QPSK"):
+            from ..reference_cpu import golden
+            row["oracle_ber"] = float(np.mean(
+                [golden.run_chain(cfg, seed=s)["ber"] for s in seeds]))
         results.append(row)
         if not args.json:
-            print(f"SNR {row['snr_db']:6.1f} dB   BER {row['ber']:.6f}")
+            line = f"SNR {row['snr_db']:6.1f} dB   BER {row['ber']:.6f}"
+            if "oracle_ber" in row:
+                line += f"   oracle {row['oracle_ber']:.6f}"
+            print(line)
     if args.json:
         print(json.dumps(results))
     return results

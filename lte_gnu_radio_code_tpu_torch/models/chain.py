@@ -84,6 +84,25 @@ def make_chain(cfg: OFDMConfig, **rx_kwargs):
                              num_patterns=num_patterns, **rx_kwargs)
 
 
+def transmit(cfg: OFDMConfig, h: np.ndarray, bits: torch.Tensor, *,
+             generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None,
+             plain: bool = False) -> torch.Tensor:
+    """The TX and channel half of :func:`chain_batch`: bits [B, num_bits]
+    -> received samples [B, frame_len + nfft - 1].  TX is one K1 launch
+    over every symbol of the batch, the channel one K3 launch (any CIR of
+    <= 16 taps), AWGN per frame with a per-frame signal power; ``plain``
+    takes TX through torch.fft and the channel through its plain form."""
+    tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
+    if plain or len(h) > channel_conv.MAX_TAPS:
+        clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
+    else:
+        clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
+    sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
+    return chan_ops.awgn(cfg, clean, sig_pow[:, None], generator=generator,
+                         noise=noise)
+
+
 def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
                 num_patterns: int, bits: torch.Tensor, *,
                 generator: torch.Generator | None = None,
@@ -92,19 +111,12 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
     """Whole-batch chain step, the form ``bench.py:chain_batch`` times on
     the all-kernel path: bits [B, num_bits] -> per-frame BER and lock.
 
-    TX runs as one K1 launch over every symbol of the batch, the channel
-    as one K3 launch (any CIR of <= 16 taps), AWGN per frame with a
-    per-frame signal power, and RX through ``rxofdm.rx_frames_batch`` (K4
-    and K2), for any modulation and pilot grid.  ``plain`` swaps every
+    TX and channel through :func:`transmit` (K1 and K3), and RX through
+    ``rxofdm.rx_frames_batch`` (K4 and K2), for any modulation and pilot
+    grid.  ``plain`` swaps every
     kernel for its plain twin, with TX through torch.fft."""
-    tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
-    if plain or len(h) > channel_conv.MAX_TAPS:
-        clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
-    else:
-        clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
-    sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
-    rxs = chan_ops.awgn(cfg, clean, sig_pow[:, None], generator=generator,
-                        noise=noise)
+    rxs = transmit(cfg, h, bits, generator=generator, noise=noise,
+                   plain=plain)
     r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns,
                                plain=plain)
     return BatchChainResult(_ber(r.hard_bits, bits), r.found, r.hard_bits,

@@ -9,7 +9,9 @@ pilot grid.  ``path`` selects the modulator:
 * ``"kernel"`` -> K1 (``kernels.ofdm_mod.modulate_rows``) over the whole
   batch's symbols as one row axis (rows normalise independently);
 * ``"fused"``  -> :func:`tx_frames_fused`, grid-free through K1 (with a
-  pilot grid it gives way to the ``"kernel"`` grid path).
+  pilot grid it gives way to the ``"kernel"`` grid path);
+* ``"fourstep"`` -> ``ops.ofdm.modulate_fourstep``, the IDFT as two matrix
+  products (plain torch, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def tx_frames(cfg: OFDMConfig, bits: torch.Tensor,
     grids = _grid(cfg, bits)
     if path is None:
         return ofdm.modulate(cfg, grids)
+    if path == "fourstep":
+        return ofdm.modulate_fourstep(cfg, grids)
     if path != "kernel":
         raise ValueError(f"unknown TX path {path!r}")
     rows = ofdm_mod.modulate_rows(cfg, grids.reshape(-1, cfg.nfft))

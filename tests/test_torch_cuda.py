@@ -15,7 +15,10 @@ the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
 MIMO chains: K4 at ZC slice 0 on both routes, the kernel path against the
 plain path, one K4 launch a step, no host synchronisation; a batch of PLS
 key exchanges on the card; the native ring's chunks into a receiver on
-the card:
+the card.  The sharded runtime (``parallel/``): the sharded RX, the dp x t
+chain and the sharded reacq and legacy chunk steps on the kernels against
+the plain path and the unsharded twins, one K4 and one K2 launch a call or
+step, a step under sync debug mode "error":
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -965,3 +968,116 @@ def test_native_chunks_feed_the_card_receiver(dev):
     for a, b in zip(outs, direct):
         for f, g in zip(a, b):
             assert torch.equal(f, g)
+
+
+def _same_fields(a, b, atol=2e-4, skip=()):
+    """Integer and bool fields equal, float fields within atol."""
+    for name in a._fields:
+        if name in skip:
+            continue
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype.is_floating_point or x.dtype.is_complex:
+            torch.testing.assert_close(x, y, atol=atol, rtol=0)
+        else:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("cfg,n_shards", [(GOLDEN64, 4), (L8, 2)],
+                         ids=["golden64-t4", "lte1024-t2"])
+def test_sharded_rx_kernel_path_equals_plain_and_single(dev, cfg, n_shards):
+    """The time-sharded RX on the card: one K4 and one K2 launch a call,
+    found, lock, delay and bits equal to the plain path's (conv, dft) and
+    to the single-device rx_frame on the kernels."""
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh, sharded
+
+    if cfg.frame_len // n_shards < sharded.halo_size(cfg):
+        cfg = dataclasses.replace(cfg, num_ofdm_symb=4 * cfg.num_ofdm_symb)
+    bits, xs = _frames(cfg, dev, 2, seed=57)
+    m = mesh.time_mesh(n_shards)
+    n = xs.shape[1]
+    kernels.reset_launch_counts()
+    r = sharded.make_sharded_rx(cfg, n, m)(xs)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "sync_search": 1, "equalize": 1}
+    p = sharded.make_sharded_rx(cfg, n, m, fast="conv", demod_path="dft")(xs)
+    one = rxofdm.make_rx(cfg, n, fast="kernel", eq="kernel")(xs)
+    assert bool(r.found.all())
+    for ref in (p, one):
+        for name in ("found", "lock_ptr", "delay_idx", "hard_bits"):
+            assert torch.equal(getattr(r, name), getattr(ref, name)), name
+        torch.testing.assert_close(r.phasors, ref.phasors, atol=2e-4, rtol=0)
+    assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
+
+
+def test_sharded_chain_equals_chain_batch_on_the_card(dev):
+    """The dp x t chain on one noise tensor: BER, found and lock equal to
+    chain_batch's, one launch of each of K1-K4 a step."""
+    from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh
+
+    cfg, b = GOLDEN64, 8
+    n = cfg.frame_len + cfg.nfft - 1
+    bits = torch.from_numpy(np.random.default_rng(58).integers(
+        0, 2, (b, cfg.num_bits), dtype=np.int32)).to(dev)
+    noise = _cplx(dev, 59, b, n)
+    kernels.reset_launch_counts()
+    ber, found, lock = pchain.make_sharded_chain(
+        cfg, mesh.make_mesh(4, dp=2))(bits, noise=noise)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 1), "tracker": 0}
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+    ref = chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
+                            num_patterns, bits, noise=noise)
+    assert bool(found.all()) and float(ber.max()) == 0.0
+    assert torch.equal(ber, ref.ber) and torch.equal(lock, ref.lock_ptr)
+
+
+@pytest.mark.parametrize("kind", ["reacq", "legacy"])
+def test_sharded_stream_kernel_path_equals_plain(dev, kind):
+    """A sharded chunk step on the card: one K4 (reacq) and one K2 launch a
+    step, every field equal to the plain path's and to the unsharded
+    receiver's (floats within 2e-4), push_many == pushes, and no step
+    waits for the host."""
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh, streaming
+
+    n_shards = 4
+    m = mesh.time_mesh(n_shards)
+    if kind == "reacq":
+        cfg, chunk = GOLDEN64, 4800
+        x = _streams(cfg, dev, 1, 6 * chunk, seed=60)[0]
+        make = lambda **kw: streaming.ShardedReacqStreamingRx(cfg, chunk, m,
+                                                              **kw)
+        plain = make(fast="conv", demod_path="dft")
+        alone = rt.ReacqStreamingRx(cfg, chunk)
+        want = {"sync_search": 1, "equalize": 1}
+    else:
+        cfg = config_from_case(CFO_CASES, 7)
+        chunk = n_shards * 64 * cfg.stride
+        x = _legacy_stream(cfg, dev, 6, seed=61, cfo_hz=1500.0)
+        fo = (0.0, -1500.0, 1500.0)
+        make = lambda **kw: streaming.ShardedLegacyStreamingRx(
+            cfg, chunk, m, fo_range=fo, **kw)
+        plain = make(demod_path="dft")
+        alone = rt.LegacyStreamingRx(cfg, chunk, fo_range=fo)
+        want = {"equalize": 1}
+    k = len(x) // chunk
+    chunks = x[:k * chunk].reshape(k, chunk)
+    rx = make()
+    assert rx.device.type == "cuda"
+    kernels.reset_launch_counts()
+    many = rx.push_many(chunks)
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), **{n: k * v for n, v in want.items()}}
+    assert int(many.valid.sum()) > 0
+    _same_fields(many, plain.push_many(chunks), skip=("peaks",))
+    _same_fields(many, alone.push_many(chunks))
+    seq = make()
+    for i, c in enumerate(chunks):
+        out = seq.push(c)
+        for name in out._fields:
+            assert torch.equal(getattr(out, name), getattr(many, name)[i])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seq.push(chunks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
