@@ -50,10 +50,17 @@ plain twin in every carry field; the call, both routes' kernels and the
 plain loop eager, timed, and one call profiled; then the same at the batch
 that fills the card (8 streams on each SM), warp route == block route
 there.
-``tracker_block_run``: the block route on its own path, LTE1024 buffers.
-``tracker_stream_run``: ``TrackerStreamingRx`` on a 16-frame stream with a
-gap: chunked == whole buffer, ``push_many`` == pushes, no host
-synchronisation in a chunk step.
+``tracker_block_run``: the block route on its own path, LTE1024 and
+LTE2048 buffers; ``tracker_fill_run``: LTE1024 at the batch that fills the
+card (8 streams of 256 threads on each SM), its first 4 streams == a call
+on those 4 alone; each also holds K2 to its plain version on what the call
+hands it.  ``tracker_stream_run``: ``TrackerStreamingRx`` on a GOLDEN64
+16-frame stream with a gap, chunks of 2400 strides (the warp route), and
+an 8-frame LTE1024 stream, chunks of 1024 strides (the block route):
+chunked == whole buffer, ``push_many`` == pushes, one launch a chunk step
+on the rule's route, no host synchronisation in a chunk step, and the
+tracker kernel and K2 held to their plain versions on a chunk step's
+inputs.
 
 Then the 2x2 paths.  ``mimo_run``: ``make_mimo_chain`` (SpMult) and
 ``make_stcode_chain`` (Alamouti) at tests/test_mimo.py's configuration,
@@ -98,6 +105,8 @@ LTE1024 frames each: every frame locked with BER 0, the gathered results
 one on the default backend, NCCL (``--nccl-worker``).
 
 Run from the repository root:  python3 chip_smoke.py
+(``--tracker-block``: the block route's LTE1024 and LTE2048 paths alone;
+a copy of the script in a parent commit's tree times that tree's kernel.)
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
 """
@@ -168,14 +177,16 @@ SLEEP_CLOCK_HZ = 2.0e9        # above the H100's 1.98 GHz boost clock, so a
 # tracker: config, streams (the JAX bench's tracker batch,
 # bench_generations.py:173-200), SNR of its buffers (:175)
 TRACKER = ("GOLDEN64", 16, 80.0)
-TRACKER_LTE = ("LTE1024", 4, 80.0)    # the block route's main path
+# the block route's main paths (nfft above the warp route's limit)
+TRACKER_LTE = (("LTE1024", 4, 80.0), ("LTE2048", 4, 80.0))
 TRACKER_FILL_PER_SM = 8       # streams on each SM in the card-filling batch
-TRACKER_STREAM_FRAMES = 16    # frames of the one tracker stream
-TRACKER_CHUNK_STRIDES = 2400  # tracker stream chunk: 2400 strides
+                              # (GOLDEN64 on the warp route; LTE1024 on the
+                              # block route, 256 threads a stream: 2048 an SM)
+# one tracker stream each: config, frames, chunk in strides, and the frame
+# whose start + 37 samples gets TRACKER_GAP zero samples (None: no gap)
+TRACKER_STREAMS = (("GOLDEN64", 16, 2400, 2),   # 2: before the float32 fit
+                   ("LTE1024", 8, 1024, None))  # loses the cadence (PERF.md)
 TRACKER_GAP = 3               # zero samples inserted into the stream
-TRACKER_GAP_FRAME = 2         # ... 37 samples after this frame's start,
-                              # before the float32 fit loses the cadence
-                              # (PERF.md, section 6)
 CHASE_BYTES = 4 << 20         # pointer-chase ring: in the L2, beyond the L1
 CHASE_STEPS = 1 << 14
 # 2x2 MIMO cells: name, configuration, frames a step.  The test config is
@@ -1473,17 +1484,21 @@ def same_track(a, b, what) -> tuple[float, float, float]:
     return errs
 
 
-def tracker_check(cfg, xs, steps, max_det, kind, ref, cell) -> float:
+def tracker_check(cfg, xs, steps, max_det, kind, ref, cell, x_start=0,
+                  fire_limit=None, carry=None) -> float:
     """The tracker kernel of route ``kind`` against a scan ``ref`` = (carry,
-    ys) on the same inputs: every carry field's bits, accept, pointer and
-    delay at every step equal; peaks within 1e-5 of their size and the
-    compacted channel table within 1e-5.  Returns the larger float error."""
+    ys) on the same inputs (by default the whole buffer from a fresh
+    carry): every carry field's bits, accept, pointer and delay at every
+    step equal; peaks within 1e-5 of their size and the compacted channel
+    table within 1e-5.  Returns the larger float error."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
 
-    ck, yk = ktrk._launch(kind, cfg, xs, 0, xs.shape[1],
-                          tracker.tracker_init_carry(len(xs), xs.device),
-                          steps, max_det)
+    if carry is None:
+        carry = tracker.tracker_init_carry(len(xs), xs.device)
+    ck, yk = ktrk._launch(kind, cfg, xs, x_start,
+                          xs.shape[1] if fire_limit is None else fire_limit,
+                          carry, steps, max_det)
     cp_, yp = ref
     for nm, a, b in zip(("accept", "ptr", "delay"), yk, yp):
         if not torch.equal(a, b):
@@ -1503,25 +1518,31 @@ def tracker_check(cfg, xs, steps, max_det, kind, ref, cell) -> float:
     return max(peak_err, h_err)
 
 
-def tracker_work(cfg, xs, scan) -> tuple:
+def tracker_work(cfg, xs, scan, x_start=0, carry_in=None) -> tuple:
     """What the tracker's scan (carry, ys) over xs needed, whichever kernel
-    ran it.  A step that does not fire leaves the carry as it was, so every
-    later step of the call repeats it: a stream computes its fired steps
-    (the loop count, from 0) and at most one more.  Returns (computed steps
-    [B]; bytes: the samples the computed steps' windows read, each once,
-    the carry read and written, the step outputs and the channel table
-    written; float32 operations of each computed step's cheapest form:
-    m_synch forward FFTs, the product q = X conj(zc) over the synch bins,
-    the power and normalisation, and the correlations at every delay as one
-    inverse FFT of q scattered to its bins, with the cp + 1 magnitudes)."""
+    ran it (xs[0] at global sample ``x_start``, from the carry ``carry_in``,
+    by default a fresh one).  A step that does not fire leaves the carry as
+    it was, so every later step of the call repeats it: a stream computes
+    its fired steps (the loop count's growth) and at most one more.
+    Returns (computed steps [B]; bytes: the samples the computed steps'
+    windows read, each once, the carry read and written, the step outputs
+    and the channel table written; float32 operations of each computed
+    step's cheapest form: m_synch forward FFTs, the product q = X conj(zc)
+    over the synch bins, the power and normalisation, and the correlations
+    at every delay as one inverse FFT of q scattered to its bins, with the
+    cp + 1 magnitudes)."""
     carry, ys = scan
     batch, n = xs.shape
     steps = ys[0].shape[1]
     fired = carry.loop_count.to(torch.int64)
+    if carry_in is not None:
+        fired = fired - carry_in.loop_count.to(torch.int64)
     computed = torch.clamp(fired + 1, max=steps)
     span = (cfg.m_synch - 1) * cfg.rx_b_len + cfg.nfft
+    local = ys[1].to(torch.int64) - torch.as_tensor(
+        x_start, device=xs.device).to(torch.int64).reshape(-1, 1)
     starts = torch.where(torch.arange(steps, device=xs.device) < fired[:, None],
-                         ys[1].to(torch.int64), 0)     # the frozen step: x[0]
+                         local, 0)              # the frozen step: x[0]
     idx = (starts[..., None] + torch.arange(span, device=xs.device)).clamp(
         0, n - 1).reshape(batch, -1)
     read = torch.zeros(batch, n, dtype=torch.bool, device=xs.device)
@@ -1698,20 +1719,7 @@ def tracker_run(dev, gpu, load_ms) -> list:
           f"bound {bound_b:.5f} ms by {bound_by_b}; on "
           f"{gpu}")
 
-    # -- K2 at the tracker's demod shape ----------------------------------------
-    from lte_gnu_radio_code_tpu_torch.ops import sync
-    from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
-    valid = torch.arange(max_det, device=dev) < r.count[:, None]
-    win, rot, ok = tracker.demod_track_table(cfg, xs, r.ptrs, r.delays,
-                                             valid, n)
-    bins = device_table(sync._bins, dev, cfg.nfft, cfg.num_data_bins)
-    coeff = rot * sync.mmse_gain(r.chan_freq[..., bins],
-                                 cfg.snr_linear)[..., None, :]
-    rows = win.reshape(-1, cfg.nfft).contiguous()
-    coeff = coeff.expand(*win.shape[:-1], -1).reshape(len(rows), -1
-                                                      ).contiguous()
-    k2 = equalize_check(cfg, rows, coeff)
-    print_kernel_rows(cell, {"equalize": k2})
+    k2 = tracker_k2(cfg, lambda: track(xs), cell)
     entry = tracker_entry("tracker_scan_warp", cell, counts["tracker"],
                           err["warp"], ms["warp"], plain_ms, bound_ms,
                           bound_by, steps, chain, load_ms)
@@ -1743,17 +1751,33 @@ def tracker_entry(kernel, cell, launches, err, ms, plain_ms, bound_ms,
             "dependent_load_ns": load_ms * 1e6}
 
 
-def tracker_block_run(dev, gpu, load_ms) -> dict:
-    """The block route on its own main path: ``make_tracker`` on TRACKER_LTE
-    buffers (LTE1024, nfft above the warp route's limit) made on the card:
-    one tracker launch on the block route and one K2 launch, every block
-    detected with the sent bits, kernel path == plain path, the kernel's
-    scan == the plain twin's; its time a call and a step."""
+def tracker_k2(cfg, run, cell) -> dict:
+    """K2 against its plain version on what the tracker path run() hands
+    it (its one demod call: the detection table's windows and their
+    coefficient rows)."""
+    with kernel_inputs() as seen:
+        run()
+    return path_checks(cfg, seen, cell)["equalize"]
+
+
+def real_time_msps(cfg) -> float:
+    """One stream's sample rate: nfft bins at the bin spacing."""
+    return cfg.nfft * cfg.bin_spacing / 1e6
+
+
+def tracker_block_run(name, batch, snr_db, dev, gpu, load_ms) -> list:
+    """The block route on its own main path: ``make_tracker`` on ``batch``
+    buffers of config ``name`` (nfft above the warp route's limit) made on
+    the card: one tracker launch on the block route and one K2 launch,
+    every block detected with the sent bits, kernel path == plain path,
+    the kernel's scan == the plain twin's; its time a call, a step and a
+    computed step, Msamples/s against one stream's real-time rate; K2
+    against its plain version at the demod shape.  Returns the ``kernels``
+    entries (the tracker's and K2's)."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     from lte_gnu_radio_code_tpu_torch.utils import params
 
-    name, batch, snr_db = TRACKER_LTE
     cfg = getattr(params, name)
     cell = f"{name} tracker b{batch}"
     max_det = cfg.num_patterns
@@ -1763,52 +1787,130 @@ def tracker_block_run(dev, gpu, load_ms) -> dict:
     track, r, counts = tracker_main_path(cfg, xs, bits, "block", cell)
     scan, plain_ms, errs = tracker_plain(cfg, xs, steps, max_det, r, cell)
     err = tracker_check(cfg, xs, steps, max_det, "block", scan, cell)
+    print(f"{cell}: kernel path == plain path (floats within "
+          f"{max(errs):.2e}), the block route's scan == track_scan_plain "
+          f"in every carry field's bits, accept, ptr, delay (floats within "
+          f"{err:.2e})")
+    return tracker_block_times(cfg, cell, xs, scan, track, steps, max_det,
+                               counts, err, plain_ms, gpu, load_ms)
+
+
+def tracker_block_times(cfg, cell, xs, scan, track, steps, max_det, counts,
+                        err, plain_ms, gpu, load_ms) -> list:
+    """The block route's times at one shape, printed: ``track_frame`` a
+    call (median of three) and its Msamples/s, in all and a stream,
+    against one stream's real-time rate; the kernel alone (CUDA events, L2
+    warm) a call, a step and a computed step; the bound of what the data
+    needs (``tracker_work``); a profile of three calls (busy, idle share,
+    the largest device kernels); then K2 held to its plain version on what
+    the call hands it.  Returns the tracker's and K2's ``kernels``
+    entries, with the main run's launch counts."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+
+    batch, n = xs.shape
     call, rounds = call_ms(lambda: track(xs))
-    ms = event_ms(lambda: ktrk._launch("block", cfg, xs, 0, n,
-                                       tracker.tracker_init_carry(batch, dev),
-                                       steps, max_det), 5, evict=False)
+    carry0 = tracker.tracker_init_carry(batch, xs.device)
+    ms = event_ms(lambda: ktrk._launch("block", cfg, xs, 0, n, carry0, steps,
+                                       max_det), 5, evict=False)
     computed, nbytes, ops = tracker_work(cfg, xs, scan)
     bound_ms, bound_by = bound(nbytes, ops)
     chain = int(computed.max())
-    print(f"{cell}: kernel path == plain path (floats within "
-          f"{max(errs):.2e}), the block route's scan == track_scan_plain "
-          f"(floats within {err:.2e}); track_frame {call:.3f} ms a call "
-          f"(rounds {', '.join(f'{t:.3f}' for t in rounds)}); the block "
-          f"route {ms:.4f} ms, {ms * 1e3 / steps:.4f} us a step of {steps} "
-          f"({chain} computed); plain loop eager {plain_ms:.1f} ms; bound "
-          f"{bound_ms:.5f} ms by {bound_by}; on {gpu}")
+    msps = batch * n / call / 1e3
+    print(f"{cell}: track_frame {call:.3f} ms a call (rounds "
+          f"{', '.join(f'{t:.3f}' for t in rounds)}), {msps:.3f} Msamples/s, "
+          f"{msps / batch:.3f} a stream against the real time of "
+          f"{real_time_msps(cfg):.2f}; the block route {ms:.4f} ms, "
+          f"{ms * 1e3 / steps:.4f} us a step of {steps}, "
+          f"{ms * 1e3 / chain:.4f} us a computed step of {chain} "
+          f"({int(computed.sum())} in all); plain loop eager "
+          f"{plain_ms:.1f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+          f"({nbytes} bytes, {ops:.3e} operations), share "
+          f"{bound_ms / ms:.5f}; {chain} dependent L2 loads "
+          f"{chain * load_ms:.4f} ms; on {gpu}")
+    busy, launches = profile(lambda i: track(xs), f"{cell} track_frame",
+                             top=6)
+    print(f"{cell}: track_frame busy {busy:.4f} ms of {call:.3f} a call "
+          f"(idle share {1 - busy / call:.3f}), {launches:.1f} device "
+          "launches a call")
     entry = tracker_entry("tracker_scan", cell, counts["tracker"], err, ms,
                           plain_ms, bound_ms, bound_by, steps, chain, load_ms)
-    entry["call_ms"] = call
-    return entry
+    entry.update({"call_ms": call, "busy_ms": busy, "msps": msps,
+                  "msps_per_stream": msps / batch,
+                  "real_time_msps": real_time_msps(cfg)})
+    k2 = tracker_k2(cfg, lambda: track(xs), cell)
+    return [entry, kernel_entry("equalize", cell, counts["equalize"], k2)]
 
 
-def tracker_stream_run(dev, gpu) -> None:
-    """``TrackerStreamingRx`` on one GOLDEN64 stream of TRACKER_STREAM_FRAMES
-    frames made on the card (K1, one Fading convolution over the stream,
-    AWGN at 100 dB) with TRACKER_GAP zero samples inserted in frame
-    TRACKER_GAP_FRAME, pushed in chunks of TRACKER_CHUNK_STRIDES strides:
-    one tracker and one K2 launch a step, chunked == ``track_frame`` on the
+def tracker_fill_run(dev, gpu, load_ms) -> list:
+    """The block route at the batch that fills the card: LTE1024 buffers,
+    TRACKER_FILL_PER_SM streams (blocks of 256 threads) on each SM.  The
+    main path's gates (one block-route and one K2 launch, every block
+    detected with the sent bits), the first 4 streams == a call of
+    ``make_tracker`` on those 4 rows alone, the kernel's scan == the plain
+    twin's; the times and K2's gate of :func:`tracker_block_times`.
+    Returns the ``kernels`` entries."""
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    name, _, snr_db = TRACKER_LTE[0]
+    cfg = getattr(params, name)
+    big = torch.cuda.get_device_properties(dev).multi_processor_count * \
+        TRACKER_FILL_PER_SM
+    cell = f"{name} tracker b{big}"
+    max_det = cfg.num_patterns
+    xs, bits = tracker_streams(cfg, big, snr_db, dev)
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    track, r, counts = tracker_main_path(cfg, xs, bits, "block", cell)
+    head = tracker.make_tracker(cfg, n)(xs[:4].contiguous())
+    errs4 = same_track(tracker.TrackResult(*(f[:4] for f in r)), head,
+                       f"{cell}: streams 0-3 vs a call on those 4 alone")
+    scan, plain_ms, errs = tracker_plain(cfg, xs, steps, max_det, r, cell)
+    err = tracker_check(cfg, xs, steps, max_det, "block", scan, cell)
+    print(f"{cell}: {xs.nbytes / 1e6:.1f} MB of samples; streams 0-3 == a "
+          f"call on those 4 alone (floats within {max(errs4):.2e}); kernel "
+          f"path == plain path (floats within {max(errs):.2e}), the block "
+          f"route's scan == track_scan_plain (floats within {err:.2e})")
+    return tracker_block_times(cfg, cell, xs, scan, track, steps, max_det,
+                               counts, err, plain_ms, gpu, load_ms)
+
+
+def tracker_stream_run(name, frames, chunk_strides, gap_frame, dev, gpu,
+                       load_ms) -> list:
+    """``TrackerStreamingRx`` on one stream of ``frames`` frames of config
+    ``name`` made on the card (K1, one Fading convolution over the stream,
+    AWGN at 100 dB), with TRACKER_GAP zero samples inserted 37 samples
+    into frame ``gap_frame`` (None: no gap), pushed in chunks of
+    ``chunk_strides`` strides: one tracker launch on the route the rule
+    names and one K2 launch a step, chunked == ``track_frame`` on the
     whole buffer, ``push_many`` == pushes, every detection before the gap
-    one pattern block after the one before and its bits == the sent bits,
-    no host synchronisation in a chunk step; its Msamples/s.  The gap lies
-    before the detection (~417 at GOLDEN64) where the reference's float32
-    least-squares fit, in the JAX package as here, loses the cadence of a
-    continuous stream; the detections after that are printed, not gated."""
+    (before the last block without one) one pattern block after the one
+    before and its bits == the sent bits, no host synchronisation in a
+    chunk step; its Msamples/s; the tracker kernel and K2 held to their
+    plain versions on a chunk step's inputs (:func:`tracker_stream_kernels`).
+    At GOLDEN64 the gap lies before the detection (~417) where the
+    reference's float32 least-squares fit, in the JAX package as here,
+    loses the cadence of a continuous stream; the detections after that
+    are printed, not gated.  Returns the ``kernels`` entries."""
     from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
-    from lte_gnu_radio_code_tpu_torch.utils.params import GOLDEN64 as cfg
+    from lte_gnu_radio_code_tpu_torch.utils import params
 
-    cell = f"GOLDEN64 tracker stream ({TRACKER_STREAM_FRAMES} frames)"
-    stream, bits = make_streams(cfg, 1, TRACKER_STREAM_FRAMES * cfg.frame_len,
-                                dev)
+    cfg = getattr(params, name)
+    kind = ktrk.route(cfg)
+    cell = f"{name} tracker stream ({frames} frames)"
+    stream, bits = make_streams(cfg, 1, frames * cfg.frame_len, dev)
     block = cfg.pattern_len * cfg.rx_b_len
-    gap_at = TRACKER_GAP_FRAME * cfg.frame_len + 37
-    x = torch.cat([stream[0, :gap_at],
-                   torch.zeros(TRACKER_GAP, dtype=stream.dtype, device=dev),
-                   stream[0, gap_at:]])
-    chunk = TRACKER_CHUNK_STRIDES * tracker.tracker_stride(cfg)
+    x = stream[0]
+    if gap_frame is not None:
+        gap_at = gap_frame * cfg.frame_len + 37
+        x = torch.cat([x[:gap_at],
+                       torch.zeros(TRACKER_GAP, dtype=x.dtype, device=dev),
+                       x[gap_at:]])
+    chunk = chunk_strides * tracker.tracker_stride(cfg)
     k = len(x) // chunk
     chunks = x[:k * chunk].reshape(k, chunk)
     n_real = k * chunk
@@ -1822,12 +1924,14 @@ def tracker_stream_run(dev, gpu) -> None:
     outs = cat_outs([many, stack_outs(rx.finish())])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    routes = dict(ktrk.route_launches)
     steps = outs.valid.shape[0]
     want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": steps,
             "equalize": steps}
-    if counts != want:
+    if counts != want or routes[kind] != steps or sum(routes.values()) != steps:
         raise AssertionError(f"{cell}: {steps} chunk steps, launches "
-                             f"{counts} (expected {want})")
+                             f"{counts} (expected {want}), tracker routes "
+                             f"{routes} (expected {kind})")
     v = outs.valid.reshape(-1)
     got = {f: getattr(outs, f).reshape(len(v), -1)[v]
            for f in ("ptrs", "delays", "hard_bits")}
@@ -1842,7 +1946,7 @@ def tracker_stream_run(dev, gpu) -> None:
         raise AssertionError(f"{cell}: chunk by chunk ({len(got['ptrs'])} "
                              f"detections) vs track_frame on the whole "
                              f"buffer ({nb})")
-    before = gap_at // block - 1
+    before = (gap_at if gap_frame is not None else n_real) // block - 1
     sent = bits.reshape(-1)[:before * nd_bits]
     wrong = int((whole.hard_bits[:before * nd_bits] != sent).sum())
     step = torch.diff((whole.ptrs + whole.delays)[:nb])
@@ -1850,8 +1954,8 @@ def tracker_stream_run(dev, gpu) -> None:
     if wrong or nb < before or (off and off[0] < before - 1):
         raise AssertionError(f"{cell}: {nb} detections, the first off the "
                              f"block cadence after detection {off[:1]}, "
-                             f"{wrong} of the bits before the gap differ "
-                             f"from the sent bits")
+                             f"{wrong} of the bits of the first {before} "
+                             f"blocks differ from the sent bits")
     srx = rt.TrackerStreamingRx(cfg, chunk)
     same_outs(stack_outs([srx.push(c) for c in chunks]), many,
               f"{cell}: pushes vs push_many")
@@ -1870,14 +1974,55 @@ def tracker_stream_run(dev, gpu) -> None:
         times.append(time.perf_counter() - t0)
     dt = sorted(times)[len(times) // 2]
     print(f"{cell}: {k} chunks of {chunk} (+ {steps - k} flush), {rx.slots} "
-          f"steps a chunk, launches {counts}; chunked == track_frame on the "
-          f"whole buffer ({nb} detections, the first off the block "
-          f"cadence after detection {off[:2]}), push_many == pushes, the "
-          f"{before} detections before the gap on cadence and their "
-          f"{before * nd_bits} bits == the sent bits, a chunk "
-          f"step ran under sync debug mode \"error\"; {n_real / dt / 1e6:.3f} "
-          f"Msamples/s, {dt * 1e3 / k:.3f} ms a chunk step (rounds "
+          f"steps a chunk, launches {counts}, tracker route {kind}; chunked "
+          f"== track_frame on the whole buffer ({nb} detections, the first "
+          f"off the block cadence after detection {off[:2]}), push_many == "
+          f"pushes, the first {before} detections on cadence and their "
+          f"{before * nd_bits} bits == the sent bits, a chunk step ran under "
+          f"sync debug mode \"error\"; {n_real / dt / 1e6:.3f} Msamples/s "
+          f"against the real time of {real_time_msps(cfg):.2f}, "
+          f"{dt * 1e3 / k:.3f} ms a chunk step (rounds "
           f"{', '.join(f'{t * 1e3 / k:.3f}' for t in times)}) on {gpu}")
+    return tracker_stream_kernels(
+        cfg, kind, lambda: rt.TrackerStreamingRx(cfg, chunk), chunks, counts,
+        cell, load_ms)
+
+
+def tracker_stream_kernels(cfg, kind, make, chunks, counts, cell,
+                           load_ms) -> list:
+    """The tracker kernel of route ``kind`` and K2 against their plain
+    versions on what the second chunk step of a fresh receiver make()
+    hands them (the stream's x_start and fire_limit, the first step's
+    carry): the scan == ``track_scan_plain``'s (:func:`tracker_check`), K2
+    within its tolerance; the kernel's time (CUDA events, L2 warm), the
+    plain loop's (one eager call) and the bound of what the data needs.
+    Returns both ``kernels`` entries, with the main run's launch counts."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+
+    with kernel_inputs() as seen:
+        make().push_many(chunks[:2])
+    x, x_start, limit, carry, steps, max_det = seen["tracker"][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ktrk.track_scan_plain(cfg, x, x_start, limit, carry, steps, max_det)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = tracker_check(cfg, x, steps, max_det, kind, ref, cell, x_start,
+                        limit, carry)
+    ms = event_ms(lambda: ktrk._launch(kind, cfg, x, x_start, limit, carry,
+                                       steps, max_det), 5, evict=False)
+    computed, nbytes, ops = tracker_work(cfg, x, ref, x_start, carry)
+    bound_ms, bound_by = bound(nbytes, ops)
+    chain = int(computed.max())
+    print(f"{cell}: chunk step 2's scan ({steps} steps over {x.shape[1]} "
+          f"samples, {chain} computed): the {kind} route == track_scan_plain "
+          f"(floats within {err:.2e}); {ms:.4f} ms, plain loop eager "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    k2 = path_checks(cfg, seen, cell, step=1)["equalize"]
+    name = "tracker_scan_warp" if kind == "warp" else "tracker_scan"
+    return [tracker_entry(name, cell, counts["tracker"], err, ms, plain_ms,
+                          bound_ms, bound_by, steps, chain, load_ms),
+            kernel_entry("equalize", cell, counts["equalize"], k2)]
 
 
 def file_check(dev) -> None:
@@ -2333,13 +2478,16 @@ def wall_ms(fn, reps=CHAIN_REPS) -> tuple[float, list]:
 
 @contextlib.contextmanager
 def kernel_inputs():
-    """What the path run inside hands K4's and K2's wrappers:
-    {"sync_search": [(x, n_trials), ...], "equalize": [(win, coeff), ...]},
-    call by call."""
+    """What the path run inside hands K4's, K2's and the tracker's
+    wrappers: {"sync_search": [(x, n_trials), ...], "equalize": [(win,
+    coeff), ...], "tracker": [(x, x_start, fire_limit, carry, steps,
+    max_det), ...]}, call by call."""
     from lte_gnu_radio_code_tpu_torch.kernels import equalize, sync_search
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
 
-    seen = {"sync_search": [], "equalize": []}
-    k4, k2 = sync_search.sync_corr_abs, equalize.demod_windows
+    seen = {"sync_search": [], "equalize": [], "tracker": []}
+    k4, k2, scan = (sync_search.sync_corr_abs, equalize.demod_windows,
+                    ktrk.track_scan)
 
     def search(cfg, x, n_trials, zc=None):
         seen["sync_search"].append((x, n_trials))
@@ -2349,17 +2497,23 @@ def kernel_inputs():
         seen["equalize"].append((win, coeff))
         return k2(cfg, win, coeff)
 
+    def track(cfg, *args):
+        seen["tracker"].append(args)
+        return scan(cfg, *args)
+
     sync_search.sync_corr_abs, equalize.demod_windows = search, demod
+    ktrk.track_scan = track
     try:
         yield seen
     finally:
         sync_search.sync_corr_abs, equalize.demod_windows = k4, k2
+        ktrk.track_scan = scan
 
 
-def sharded_checks(cfg, seen, cell, step=0) -> dict:
-    """K4 and K2 against their plain versions on what the sharded path
-    handed them in its step-th call (:func:`kernel_inputs`); K4's rows are
-    the shards (of every frame)."""
+def path_checks(cfg, seen, cell, step=0) -> dict:
+    """K4 (where the path ran it) and K2 against their plain versions on
+    what the path handed them in its step-th call (:func:`kernel_inputs`);
+    K4's rows are the shards (of every frame) on a sharded path."""
     out = {}
     if seen["sync_search"]:
         x, n_trials = seen["sync_search"][step]
@@ -2481,7 +2635,7 @@ def sharded_rx_run(dev, gpu) -> list:
                             one_ms, one_busy, one_launches, gpu))
             with kernel_inputs() as seen:
                 rx(x)
-            for name, c in sharded_checks(cfg, seen, cell).items():
+            for name, c in path_checks(cfg, seen, cell).items():
                 entries.append(kernel_entry(name, cell, counts[name], c))
     return entries
 
@@ -2552,7 +2706,7 @@ def sharded_chain_run(cfg_name, batch, t, dev, gpu) -> tuple:
                     b_ms, b_busy, b_launches, gpu))
     with kernel_inputs() as seen:
         step(bits, noise=noise)
-    return cell, counts, sharded_checks(cfg, seen, cell)
+    return cell, counts, path_checks(cfg, seen, cell)
 
 
 def stream_times(make, chunks, cell, top=0):
@@ -2642,7 +2796,7 @@ def sharded_stream_run(cfg_name, chunk_len, k, t, dev, gpu) -> tuple:
                     "ReacqStreamingRx", u_ms, u_busy, u_launches, gpu))
     with kernel_inputs() as seen:
         make().push_many(chunks[:2])
-    return cell, counts, sharded_checks(cfg, seen, cell, step=1)
+    return cell, counts, path_checks(cfg, seen, cell, step=1)
 
 
 def sharded_legacy_run(table, case, fo_range, cfo_hz, chunk_len, t, dev,
@@ -2718,7 +2872,7 @@ def sharded_legacy_run(table, case, fo_range, cfo_hz, chunk_len, t, dev,
                     "LegacyStreamingRx", u_ms, u_busy, u_launches, gpu))
     with kernel_inputs() as seen:
         make().push_many(chunks[:2])
-    return cell, counts["equalize"], sharded_checks(cfg, seen, cell,
+    return cell, counts["equalize"], path_checks(cfg, seen, cell,
                                                      step=1)["equalize"]
 
 
@@ -2859,25 +3013,44 @@ def kernel_entry(name, cell, launches, c) -> dict:
                if k in c}}
 
 
-def main() -> int:
+def print_ptxas(log: str) -> None:
+    """Each kernel's registers and spills (and any error) from the build
+    log, under the kernel's (mangled) name."""
+    name = ""
+    for line in log.splitlines():
+        if "entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line or "error" in line:
+            print(f"  ptxas: ...{name[-44:]}: {line.strip()}")
+
+
+def start():
+    """The card and the kernels built from this checkout's sources, their
+    registers printed: (device, the card's name and power limit), or None
+    where torch sees no CUDA device."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+        return None
     from lte_gnu_radio_code_tpu_torch.kernels import _cuda
-    from lte_gnu_radio_code_tpu_torch.utils import params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     gpu = card()
-    print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda};"
+          f" {REPO}")
     t0 = time.perf_counter()
     _cuda.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in _cuda.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("  ptxas:", line.strip())
+    print_ptxas(_cuda.build_log())
+    return torch.device("cuda"), gpu
 
+
+def main() -> int:
+    if (started := start()) is None:
+        return 1
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    dev, gpu = started
     route_cross_checks(dev)
     cli_check(dev)
     entries = []
@@ -2912,8 +3085,11 @@ def main() -> int:
     split_check(dev)
     load_ms = dependent_load_ms(dev)
     entries += tracker_run(dev, gpu, load_ms)
-    entries.append(tracker_block_run(dev, gpu, load_ms))
-    tracker_stream_run(dev, gpu)
+    for c in TRACKER_LTE:
+        entries += tracker_block_run(*c, dev, gpu, load_ms)
+    entries += tracker_fill_run(dev, gpu, load_ms)
+    for args in TRACKER_STREAMS:
+        entries += tracker_stream_run(*args, dev, gpu, load_ms)
     for name, sdr_profile, batch in MIMO_CELLS:
         entries += mimo_run(name, sdr_profile, batch, dev, gpu)
     pls_run(dev, gpu)
@@ -2942,8 +3118,27 @@ def main() -> int:
     return 0
 
 
+def tracker_block_main() -> int:
+    """``--tracker-block``: the block route's main paths alone
+    (TRACKER_LTE), with their gates, times and ``kernels`` entries.  A copy
+    of this script in another commit's tree times that tree's kernel on
+    the same inputs: the way to compare a change to the tracker's kernel
+    with its parent in one call (parent, change, change, parent)."""
+    if (started := start()) is None:
+        return 1
+    dev, gpu = started
+    load_ms = dependent_load_ms(dev)
+    entries = []
+    for c in TRACKER_LTE:
+        entries += tracker_block_run(*c, dev, gpu, load_ms)
+    print(json.dumps({"kernels": entries}))
+    return 0
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--multihost-worker"]:
+    if sys.argv[1:2] == ["--tracker-block"]:
+        sys.exit(tracker_block_main())
+    elif sys.argv[1:2] == ["--multihost-worker"]:
         multihost_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     elif sys.argv[1:2] == ["--nccl-worker"]:
         nccl_worker(sys.argv[2])

@@ -40,17 +40,32 @@
 // call's outputs from that one step (the correlation of the window at
 // x[0]) and leaves the loop.
 //
-// tracker_scan ("block" route, nfft above 128): one block of 256 threads a
-// stream runs every step:
-//   1. thread 0 turns the carry (in registers) into this step's pointer;
+// tracker_scan ("block" route, nfft above 128, or cp >= nfft): one block
+// of 256 threads a stream; thread 0 holds the carry.  A step:
+//   1. thread 0 turns the carry into this step's pointer and whether it
+//      fires, and hands both to the block through shared memory;
 //   2. the block gathers the m_synch windows (clamped) into shared memory
 //      and transforms them with fft.cuh, the same in-block FFT as K2, and
 //      keeps the synch bins;
-//   3. the power normalisation, then one warp a delay forms
-//      |sum_l sd_l conj(zc_l) P[d, l]| for the cp + 1 delays;
-//   4. thread 0 takes the max and the first-index argmax, runs the state
-//      machine and the fit;
-//   5. on accept, the channel row.
+//   3. the power normalisation sd / sqrt(mean |sd|^2), and q_k = sum_m
+//      sd[m, k] conj(zc[m, k]) scattered to its bins in a zeroed row;
+//   4. the correlations at every delay d, sum_k q_k e^(+2 pi i k d / nfft),
+//      as the unscaled inverse transform of that row (fft.cuh again), read
+//      at d <= cp (at d mod nfft where cp >= nfft);
+//   5. the max |corr| and its first index by a block reduction: each thread
+//      over its delays in order, warp shuffles, then the 8 warps' winners,
+//      ties to the lower index as torch.max;
+//   6. thread 0 runs the state machine and the fit;
+//   7. on accept, the channel row: sd P[arg] conj(zc) / denom over the
+//      windows, with P[arg] formed from the FFT's twiddle table,
+//      e^(+2 pi i k arg / nfft) = conj(tw[k arg mod nfft]): the same float32
+//      values as the delay matrix (both are the float64 exponential rounded
+//      once), from an 8-32 KB table the transforms keep in L1, so the
+//      block route never reads the delay matrix.
+// As on the warp route, a step that does not fire is the carry's fixed
+// point: the block writes its outputs (the correlation of the window at
+// x[0]) into every later step's slots and leaves the loop, so a call
+// computes its fired steps and one more, not every step.
 //
 // Both routes write the step outputs of the scan (accept, pointer, delay,
 // peak) and the channel table compacted: row k of [max_det, nfft] holds
@@ -502,8 +517,9 @@ tracker_scan_kernel(const Params p) {
   constexpr int kWarps = lte::kThreads / 32;
   extern __shared__ float4 smem[];
   __shared__ float red[kWarps];
-  __shared__ int s_local, s_row, s_col;
-  __shared__ float s_scale;
+  __shared__ int red_at[kWarps];
+  __shared__ int s_local, s_ptr, s_row, s_used;
+  __shared__ bool s_fire;
 
   const int s = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -512,16 +528,16 @@ tracker_scan_kernel(const Params p) {
   const int rx_b_len = N + cp;
   float2* rows = reinterpret_cast<float2*>(smem);
   float2* sd = rows + 2 * R * N;                        // [L]
-  float* dd = reinterpret_cast<float*>(sd + ((L + 1) / 2) * 2);   // [D]
   float2* c = rows + slot * 2 * N;                      // staging
   float2* w = c + N;                                    // work
+  float2* q = rows;            // slot 0's staging row: q at its bins ...
+  const float2* corr = rows + N;   // ... and its inverse transform
   const float2* x = p.x + (long)s * p.n;
   float2* chans = p.chans + (long)s * p.max_det * N;
 
   // the carry, held by thread 0
   State st;
   int xs = 0, fl = 0, ptr = 0, count = 0;
-  bool fire = false;
   if (tid == 0) {
     st.load(p.in, s);
     xs = p.x_start[s];
@@ -532,75 +548,114 @@ tracker_scan_kernel(const Params p) {
     // 1. this step's pointer
     if (tid == 0) {
       ptr = st.pointer(p, rx_b_len);
-      fire = (m0 - 1) * rx_b_len + N + ptr < fl && ptr >= xs;
+      const bool fire = (m0 - 1) * rx_b_len + N + ptr < fl && ptr >= xs;
       s_local = fire ? ptr - xs : 0;
+      s_ptr = ptr;
+      s_fire = fire;
     }
     __syncthreads();
+    const long local = s_local;
+    const bool fire = s_fire;
 
     // 2. the synch windows' spectra on the synch bins
-    const long local = s_local;
     for (int g = 0; g < m0; g += R) {
       const int m = g + slot;
       if (m < m0) {
         const long base = local + (long)m * rx_b_len;
-        for (int q = t; q < N; q += T) {
-          long i = base + q;
+        for (int k = t; k < N; k += T) {
+          long i = base + k;
           i = i < 0 ? 0 : (i >= p.n ? p.n - 1 : i);
-          c[q] = x[i];
+          c[k] = x[i];
         }
       } else {
-        for (int q = t; q < N; q += T) c[q] = make_float2(0.f, 0.f);
+        for (int k = t; k < N; k += T) c[k] = make_float2(0.f, 0.f);
       }
       __syncthreads();
       lte::fft::transform<N, T, false>(c, w, p.tw, t, 1.f, [] {});
       if (m < m0)
-        for (int q = t; q < nsb; q += T) sd[m * nsb + q] = w[__ldg(p.bins + q)];
+        for (int k = t; k < nsb; k += T) sd[m * nsb + k] = w[__ldg(p.bins + k)];
       __syncthreads();
     }
 
-    // 3. power normalisation, then |correlation| at each delay
+    // 3. the power normalisation, and q scattered to its bins in a zeroed
+    // row (the staging rows are free since the transforms' first stage)
     float pw = 0.f;
     for (int l = tid; l < L; l += lte::kThreads)
       pw += sd[l].x * sd[l].x + sd[l].y * sd[l].y;
+    for (int k = tid; k < N; k += lte::kThreads) q[k] = make_float2(0.f, 0.f);
     pw = lte::warp_sum(pw);
     if (lane == 0) red[warp] = pw;
     __syncthreads();
-    if (tid == 0) {
-      float tot = 0.f;
+    float tot = 0.f;                     // every thread, in the same order
 #pragma unroll
-      for (int i = 0; i < kWarps; ++i) tot += red[i];
-      s_scale = sqrtf(fmaxf(tot / L, 1e-30f));
-    }
-    __syncthreads();
-    const float scale = s_scale;
-    for (int l = tid; l < L; l += lte::kThreads)
-      sd[l] = make_float2(sd[l].x / scale, sd[l].y / scale);
-    __syncthreads();
-    for (int d = warp; d < D; d += kWarps) {
-      const float2* pd = p.p_t + (long)d * L;
-      float re = 0.f, im = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        const float2 q = cmul(sd[l], __ldg(p.zc_conj + l));
-        const float2 v = __ldg(pd + l);
-        re += q.x * v.x - q.y * v.y;
-        im += q.x * v.y + q.y * v.x;
+    for (int i = 0; i < kWarps; ++i) tot += red[i];
+    const float scale = sqrtf(fmaxf(tot / L, 1e-30f));
+    for (int k = tid; k < nsb; k += lte::kThreads) {
+      float2 acc = make_float2(0.f, 0.f);
+      for (int m = 0; m < m0; ++m) {
+        const int l = m * nsb + k;
+        const float2 v = make_float2(sd[l].x / scale, sd[l].y / scale);
+        sd[l] = v;
+        acc = cadd(acc, cmul(v, __ldg(p.zc_conj + l)));
       }
-      re = lte::warp_sum(re);
-      im = lte::warp_sum(im);
-      if (lane == 0) dd[d] = hypotf(re, im);
+      q[__ldg(p.bins + k)] = acc;
     }
     __syncthreads();
 
-    // 4. the decision and the state machine
+    // 4. the correlations: the unscaled inverse transform of q (every
+    // slot runs the transform's barriers; slot 0's row is the one read)
+    lte::fft::transform<N, T, true>(c, w, p.tw, t, 1.f, [] {});
+    if constexpr (T <= 32) __syncthreads();   // rows of a warp sync it only
+
+    // 5. max |corr| over d <= cp and its first index
+    float best = -1.f;
+    int at = D;
+    for (int d = tid; d < D; d += lte::kThreads) {   // d in order: the lower
+      const float2 v = corr[d & (N - 1)];
+      const float a = hypotf(v.x, v.y);
+      if (a > best) {
+        best = a;
+        at = d;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, best, o);
+      const int oi = __shfl_xor_sync(kFull, at, o);
+      if (ov > best || (ov == best && oi < at)) {
+        best = ov;
+        at = oi;
+      }
+    }
+    if (lane == 0) {
+      red[warp] = best;
+      red_at[warp] = at;
+    }
+    __syncthreads();
+    float dmax = red[0];
+    int arg = red_at[0];
+#pragma unroll
+    for (int i = 1; i < kWarps; ++i)
+      if (red[i] > dmax || (red[i] == dmax && red_at[i] < arg)) {
+        dmax = red[i];
+        arg = red_at[i];
+      }
+
+    if (!fire) {                         // the carry's fixed point
+      const int at_ptr = s_ptr;
+      for (int u = step + tid; u < p.steps; u += lte::kThreads) {
+        const long o = (long)s * p.steps + u;
+        p.accept[o] = 0;
+        p.ptr[o] = at_ptr;
+        p.delay[o] = arg - 1;
+        p.peak[o] = dmax;
+      }
+      break;
+    }
+
+    // 6. the decision and the state machine
     if (tid == 0) {
-      float dmax = dd[0];
-      int arg = 0;
-      for (int d = 1; d < D; ++d)
-        if (dd[d] > dmax) {
-          dmax = dd[d];
-          arg = d;
-        }
-      const bool acc = st.decide(p, N, fire, ptr, dmax, arg);
+      const bool acc = st.decide(p, N, true, ptr, dmax, arg);
       const long o = (long)s * p.steps + step;
       p.accept[o] = acc;
       p.ptr[o] = ptr;
@@ -608,39 +663,40 @@ tracker_scan_kernel(const Params p) {
       p.peak[o] = dmax;
       s_row = acc && count < p.max_det ? count : -1;
       count += acc;
-      s_col = arg;
     }
     __syncthreads();
 
-    // 5. on accept, the channel row in its slot of the table
-    if (s_row >= 0) {
-      const float2* pc = p.p_t + (long)s_col * L;
-      float2* h = chans + (long)s_row * N;
-      for (int q = tid; q < N; q += lte::kThreads) {
-        const int l = __ldg(p.bin_slot + q);
+    // 7. on accept, the channel row in its slot of the table.  No barrier
+    // after it: the next step writes sd and s_row only after its first
+    // one, and the end of the call reads the count from s_used.
+    const int row = s_row;
+    if (row >= 0) {
+      float2* h = chans + (long)row * N;
+      for (int k = tid; k < N; k += lte::kThreads) {
+        const int l = __ldg(p.bin_slot + k);
         float2 v = make_float2(0.f, 0.f);
         if (l >= 0) {
+          const float2 e = __ldg(p.tw + ((k * arg) & (N - 1)));
+          const float2 pk = make_float2(e.x, -e.y);      // P[k, arg]
           for (int m = 0; m < m0; ++m) {
-            const int k = m * nsb + l;
-            const float2 e = cmul(cmul(sd[k], __ldg(pc + k)),
-                                  __ldg(p.zc_conj + k));
-            v.x += e.x / p.denom;
-            v.y += e.y / p.denom;
+            const int j = m * nsb + l;
+            const float2 u = cmul(cmul(sd[j], pk), __ldg(p.zc_conj + j));
+            v.x += u.x / p.denom;
+            v.y += u.y / p.denom;
           }
           v = make_float2(v.x / m0, v.y / m0);
         }
-        h[q] = v;
+        h[k] = v;
       }
     }
-    __syncthreads();
   }
 
   if (tid == 0) {
     st.store(p.out, s);
-    s_row = min(count, p.max_det);
+    s_used = min(count, p.max_det);
   }
   __syncthreads();
-  for (long i = (long)s_row * N + tid; i < (long)p.max_det * N;
+  for (long i = (long)s_used * N + tid; i < (long)p.max_det * N;
        i += lte::kThreads)
     chans[i] = make_float2(0.f, 0.f);
 }

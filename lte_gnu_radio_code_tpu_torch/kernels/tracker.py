@@ -25,11 +25,18 @@ device memory, so a chunk step waits for nothing on the host:
   and cp < nfft, with its tables in one block's shared memory (GOLDEN64);
 * ``"block"`` — ``tracker_scan``, one block of 256 threads a stream: every
   other shape with nfft a power of two up to 4096 (LTE1024, LTE2048), with
-  the FFT rows, the synch spectrum and the correlations in one block's
-  shared memory.
+  the FFT rows and the synch spectrum in one block's shared memory.  A step
+  transforms the synch windows (``csrc/fft.cuh``), forms q = sd conj(zc)
+  on the synch bins, and takes the correlations at every delay as one
+  unscaled inverse transform of q scattered to its bins, the argmax by a
+  block reduction; the delay matrix is never read (an accepted step's
+  channel row takes its column from the twiddle table).
 
-Both need m_synch >= 1; any other shape raises ``ValueError`` on a CUDA
-tensor.  Neither route falls back to the other or to the twin.
+On both routes a step that does not fire leaves the carry as it was, so
+every later step of the call repeats it: the kernel writes that step's
+outputs into the remaining slots and leaves its loop.  Both need m_synch
+>= 1; any other shape raises ``ValueError`` on a CUDA tensor.  Neither
+route falls back to the other or to the twin.
 """
 
 from __future__ import annotations
@@ -62,15 +69,15 @@ def smem_bytes(cfg: OFDMConfig, kind: str) -> int:
     """Dynamic shared memory of one block of route ``kind``.  Warp: the
     delay matrix and conj(ZC) in the warp's register order, (cp + 1 +
     m_synch) rows of max(nfft, 32) complex64.  Block: the FFT rows
-    (``fft.cuh``'s staging and work buffer a row), the synch spectrum and
-    the correlations, each rounded up to 16 bytes."""
+    (``fft.cuh``'s staging and work buffer a row; the first row's also
+    hold q and its inverse transform) and the synch spectrum, each rounded
+    up to 16 bytes."""
     nfft = cfg.nfft
     if kind == "warp":
         return (cfg.cp_len + 1 + cfg.m_synch) * max(nfft, 32) * 8
     rows = 2 * (THREADS // min(nfft // 4, THREADS)) * nfft * 8
     spec = cfg.m_synch * cfg.num_synch_bins * 8
-    corr = (cfg.cp_len + 1) * 4
-    return sum(-(-b // 16) * 16 for b in (rows, spec, corr))
+    return sum(-(-b // 16) * 16 for b in (rows, spec))
 
 
 def route(cfg: OFDMConfig) -> str:
@@ -91,21 +98,26 @@ def route(cfg: OFDMConfig) -> str:
 
 @functools.lru_cache(maxsize=16)
 def _tables(cfg: OFDMConfig) -> dict[str, np.ndarray]:
-    """The kernels' constants: the synch bins, each FFT bin's index among
-    them (-1 elsewhere), conj(ZC) and the delay matrix transposed [cp + 1,
-    m_synch * num_synch_bins]."""
-    from ..models import tracker as model
-
+    """Both routes' constants: the synch bins, each FFT bin's index among
+    them (-1 elsewhere) and conj(ZC)."""
     bins = np.asarray(used_bins(cfg.nfft, cfg.num_synch_bins)[1], np.int32)
     slot = np.full(cfg.nfft, -1, np.int32)
     slot[bins] = np.arange(len(bins), dtype=np.int32)
     return {"bins": bins, "slot": slot,
-            "zc_conj": np.conj(zc_for_config(cfg)).astype(np.complex64),
-            "p_t": np.ascontiguousarray(model.delay_matrix(cfg).T)}
+            "zc_conj": np.conj(zc_for_config(cfg)).astype(np.complex64)}
 
 
 def _table(cfg: OFDMConfig, name: str) -> np.ndarray:
     return _tables(cfg)[name]
+
+
+def _delay_table(cfg: OFDMConfig) -> np.ndarray:
+    """The delay matrix transposed [cp + 1, m_synch * num_synch_bins]: the
+    warp route's table (the block route takes the same values from the
+    twiddles, and is handed a null pointer in its place)."""
+    from ..models import tracker as model
+
+    return np.ascontiguousarray(model.delay_matrix(cfg).T)
 
 
 def track_scan_plain(cfg: OFDMConfig, x: torch.Tensor, x_start, fire_limit,
@@ -151,13 +163,15 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor, x_start,
                       device=dev))
     tab = {k: device_table(_table, dev, cfg, k) for k in _tables(cfg)}
     tw = device_table(fft.twiddles, dev, nfft)
+    p_t = (device_table(_delay_table, dev, cfg).data_ptr() if kind == "warp"
+           else 0)
     c_in = (ctypes.c_void_p * 9)(*(c.data_ptr() for c in carry))
     c_out = (ctypes.c_void_p * 9)(*(c.data_ptr() for c in new))
     _cuda.launch(
         ENTRY[kind], dev, x.data_ptr(), n, batch, starts.data_ptr(),
         limits.data_ptr(), ctypes.addressof(c_in), ctypes.addressof(c_out),
         steps, max_det, tab["bins"].data_ptr(), tab["slot"].data_ptr(),
-        tab["zc_conj"].data_ptr(), tab["p_t"].data_ptr(), tw.data_ptr(),
+        tab["zc_conj"].data_ptr(), p_t, tw.data_ptr(),
         *(y.data_ptr() for y in ys), nfft, cfg.cp_len, cfg.m_synch,
         cfg.num_synch_bins, cfg.pattern_len, int(np.ceil(cfg.cp_len / 2)),
         smem_bytes(cfg, kind),

@@ -670,18 +670,19 @@ TRACKER_CFGS = pytest.mark.parametrize("cfg", [
     ids=["golden64", "m_synch2", "nfft128"])
 
 
-def _same_scan(cfg, xs, steps, max_det, kind, ref):
+def _same_scan(cfg, xs, steps, max_det, kind, ref, carry=None):
     """The tracker kernel of route ``kind`` against a scan ``ref`` = (carry,
-    ys) on the same inputs: every carry field (float bits too), accept,
-    pointer and delay at every step equal, peaks within 1e-5 of their size,
-    the compacted channel table within 1e-5."""
+    ys) on the same inputs (from ``carry``, else the empty one): every
+    carry field (float bits too), accept, pointer and delay at every step
+    equal, peaks within 1e-5 of their size, the compacted channel table
+    within 1e-5."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     n = xs.shape[1]
+    if carry is None:
+        carry = tracker.tracker_init_carry(len(xs), xs.device)
     before = dict(ktrk.route_launches)
-    ck, yk = ktrk._launch(kind, cfg, xs, 0, n,
-                          tracker.tracker_init_carry(len(xs), xs.device),
-                          steps, max_det)
+    ck, yk = ktrk._launch(kind, cfg, xs, 0, n, carry, steps, max_det)
     assert ktrk.route_launches[kind] == before[kind] + 1
     cp_, yp = ref
     for name, a, b in zip(tracker.TrackerCarry._fields, ck, cp_):
@@ -736,14 +737,20 @@ def test_track_scan_kernel_equals_plain(dev, cfg):
         assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
 
 
+NFFT256 = dataclasses.replace(G24, nfft=256, cp_len=64, num_data_bins=240,
+                              num_synch_bins=254)
+
+
 @pytest.mark.parametrize("cfg,n_sym", [
-    (dataclasses.replace(G24, nfft=256, cp_len=64, num_data_bins=240,
-                         num_synch_bins=254), 24),
-    (LTE1024, 16)], ids=["nfft256", "lte1024"])
+    (NFFT256, 24), (dataclasses.replace(NFFT256, synch_dat=(2, 2)), 24),
+    (LTE1024, 16), (LTE2048, 16)],
+    ids=["nfft256", "nfft256-m_synch2", "lte1024", "lte2048"])
 def test_tracker_block_route(dev, cfg, n_sym):
-    """Shapes the rule gives to the block route (nfft 256, and a short
-    LTE1024 buffer of 16 symbols): the kernel == the plain twin, every
-    pattern block detected with the sent bits."""
+    """Shapes the rule gives to the block route (nfft 256 with one and two
+    synch symbols, short LTE1024 and LTE2048 buffers of 16 symbols): the
+    kernel == the plain twin, every pattern block detected, with the sent
+    bits where one synch symbol leads each block (with two the demod reads
+    the second synch symbol first, as the reference does)."""
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
     cfg = dataclasses.replace(cfg, num_ofdm_symb=n_sym)
@@ -757,7 +764,46 @@ def test_tracker_block_route(dev, cfg, n_sym):
     _same_scan(cfg, xs, steps, cfg.num_patterns, "block", ref)
     r = tracker.make_tracker(cfg, n)(xs)
     assert bool((r.count == cfg.num_patterns).all())
-    assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
+    if cfg.m_synch == 1:
+        assert torch.equal(r.hard_bits[:, :cfg.num_bits], bits)
+
+
+def test_tracker_block_route_frozen_steps(dev):
+    """LTE1024 with three times the steps the buffer needs: the block route
+    leaves its loop at the first step that does not fire, and the frozen
+    steps' outputs (every one past the buffer's end) == the twin's."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    cfg = dataclasses.replace(LTE1024, num_ofdm_symb=16)
+    _, xs = _frames(cfg, dev, 2, seed=45)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    steps = 3 * (int(np.ceil(n / tracker.tracker_stride(cfg))) + 1)
+    ref = ktrk.track_scan_plain(cfg, xs, 0, n, tracker.tracker_init_carry(
+        2, dev), steps, cfg.num_patterns)
+    assert int(ref[0].loop_count.max()) < steps // 3
+    _same_scan(cfg, xs, steps, cfg.num_patterns, "block", ref)
+
+
+def test_tracker_block_route_chained_calls(dev):
+    """A stream's chunks: the carry of a first block-route call fed to a
+    second == the twin's two calls, in every carry field's bits and every
+    output of both calls."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    cfg = dataclasses.replace(LTE1024, num_ofdm_symb=32)
+    _, xs = _frames(cfg, dev, 3, seed=46)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    first = 3               # a detection a step once locked: 3, then 5
+    rest = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1 - first
+    carry = tracker.tracker_init_carry(3, dev)
+    ref1 = ktrk.track_scan_plain(cfg, xs, 0, n, carry, first, 8)
+    ref2 = ktrk.track_scan_plain(cfg, xs, 0, n, ref1[0], rest, 8)
+    assert bool((ref1[1][0].sum(1) >= 2).all())
+    assert bool((ref2[1][0].sum(1) >= 4).all())   # the fit runs there
+    ck, _ = _same_scan(cfg, xs, first, 8, "block", ref1, carry)
+    _same_scan(cfg, xs, rest, 8, "block", ref2, ck)
 
 
 def test_tracker_warp_route_equals_block_route(dev):

@@ -12,6 +12,7 @@ JAX package's, tests/test_stream_rx.py).  The kernel is held to its plain
 twin on a CUDA device by tests/test_torch_cuda.py."""
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ GAP = 3                  # zero samples inserted mid-stream in the drift case
 
 G64 = jparams.GOLDEN64
 M2 = dataclasses.replace(G64, synch_dat=(2, 2), num_ofdm_symb=48).validate()
+_LTE_SHORT = dataclasses.replace(jparams.LTE1024, num_ofdm_symb=16)
 
 
 def _buffer(cfg, seed=0, snr_db=80.0, gap_at=None):
@@ -150,16 +152,18 @@ def _assert_frame_equal(ours, ref):
     return n
 
 
-@pytest.mark.parametrize("case", ["golden64", "m_synch2", "drift"])
+@pytest.mark.parametrize("case", ["golden64", "m_synch2", "drift",
+                                  "lte1024"])
 def test_track_frame_equals_jax(case):
     """Whole buffer: the port's track_frame == the JAX one, on GOLDEN64, an
-    m_synch = 2 frame and a GOLDEN64 stream with GAP samples inserted mid
-    stream (the tracker re-adjusts; the symbols before the gap decode).
+    m_synch = 2 frame, a GOLDEN64 stream with GAP samples inserted mid
+    stream (the tracker re-adjusts; the symbols before the gap decode) and
+    a short LTE1024 frame (the block route's widths: nfft 1024, cp 256).
     With m_synch = 2 both packages demodulate the symbol (j + 1) * (nfft +
     cp) after a detection's pointer, the second synch symbol first, as the
     reference's rx_data_demod does: their bits are equal, and about half of
     them differ from the sent ones."""
-    cfg = M2 if case == "m_synch2" else G64
+    cfg = {"m_synch2": M2, "lte1024": _LTE_SHORT}.get(case, G64)
     gap_at = 9600 + 37 if case == "drift" else None
     bits, rx = _buffer(cfg, gap_at=gap_at)
     ref = jtrk.make_tracker(cfg, len(rx))(jnp.asarray(rx))
@@ -281,7 +285,7 @@ def test_kernel_shape_rule():
                 dataclasses.replace(cfg, nfft=8192, num_synch_bins=8190)):
         with pytest.raises(ValueError):
             ktrk.route(bad)
-    assert ktrk.smem_bytes(cfg, "block") == 2 * 16 * 64 * 8 + 62 * 8 + 80
+    assert ktrk.smem_bytes(cfg, "block") == 2 * 16 * 64 * 8 + 62 * 8
     assert ktrk.smem_bytes(cfg, "warp") == (17 + 1) * 64 * 8
 
 
@@ -398,7 +402,8 @@ def test_track_scan_plain_count_restarts_each_call(golden):
 def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
     """The wrapper's CUDA branch with the launch recorded instead of run:
     the entry point the rule names with as many arguments as its C
-    signature, max_det and the block's shared memory passed, the outputs
+    signature, max_det and the block's shared memory passed, the delay
+    matrix to the warp route only, the outputs
     shaped [B, steps] and [B, max_det, nfft], one launch counted on that
     route, and the route counts reset with the others."""
     from lte_gnu_radio_code_tpu_torch import kernels
@@ -435,6 +440,9 @@ def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
     assert [c[0] for c in calls] == ["tracker_scan", "tracker_scan_warp"]
     assert [c[1][-3] for c in calls] == [ktrk.smem_bytes(pcfg, "block"),
                                          ktrk.smem_bytes(pcfg, "warp")]
+    # the delay matrix: the warp route's table only (the block route gets
+    # a null pointer in its slot)
+    assert [c[1][12] == 0 for c in calls] == [True, False]
     assert ktrk.route_launches == {kind: 2, other: 1}
     with pytest.raises(ValueError):
         ktrk._launch("grid", pcfg, x, 0, n, trk.tracker_init_carry(batch),
@@ -509,3 +517,92 @@ def test_warp_route_transforms(nfft):
     # every bin, and every delay, once among the lanes of a window
     assert sorted(bins[:w_n].ravel()) == list(range(nfft))
     assert sorted(n_idx[:w_n].ravel()) == list(range(nfft))
+
+
+LTE1024_M2 = dataclasses.replace(jparams.LTE1024, synch_dat=(2, 2))
+
+
+@pytest.mark.parametrize("cfg", [NFFT256, jparams.LTE1024, jparams.LTE2048,
+                                 LTE1024_M2],
+                         ids=["nfft256", "lte1024", "lte2048",
+                              "lte1024-m_synch2"])
+def test_block_route_correlation_is_an_inverse_fft(cfg):
+    """The block route's correlation (csrc/tracker.cu:tracker_scan, steps
+    3-5) in numpy: q = sum_m sd_norm conj(zc) over the windows, scattered
+    to the synch bins (kernels/tracker.py:_tables) in a zeroed row, through
+    fft.cuh's inverse stages with the twiddle table of kernels/fft.py
+    (complex64), read at d <= cp, equals the JAX step's correlation
+    |conj(zc) @ (sd_norm[:, None] p_mat_j)| (its own zc and delay matrix,
+    lte_gnu_radio_code_tpu/models/tracker.py:make_tracker_step) within 1e-5
+    of the peak, with the same first-index argmax (the sent delay).  The
+    accepted step's channel row takes column arg of the delay matrix from
+    the twiddles: conj(tw[k arg mod nfft]) == the JAX matrix's column
+    (the port's models/tracker.py:delay_matrix is that matrix, bit for
+    bit)."""
+    from lte_gnu_radio_code_tpu_torch.kernels import fft
+    from test_torch_fft_plan import stockham
+    jstep = jtrk.make_tracker_step(cfg, jnp.zeros(8, jnp.complex64), 0, 0)
+    jvars = inspect.getclosurevars(jstep).nonlocals
+    zc_j, p_mat_j = jvars["zc"], jvars["p_mat_j"]
+    cfg = port_cfg(cfg)
+    tab = ktrk._tables(cfg)
+    bins, slot, zc_conj = tab["bins"], tab["slot"], tab["zc_conj"]
+    nfft, cp, m0, nsb = cfg.nfft, cfg.cp_len, cfg.m_synch, cfg.num_synch_bins
+    assert np.array_equal(np.nonzero(slot >= 0)[0], np.sort(bins))
+    rng = np.random.default_rng(nfft + m0)
+    d0 = int(rng.integers(1, cp))
+    ramp = np.tile(np.exp(-2j * np.pi * bins * d0 / nfft), m0)
+    noise = rng.standard_normal((2, m0 * nsb))
+    sd = np.conj(zc_conj) * ramp + 0.5 * (noise[0] + 1j * noise[1])
+    sd = (sd / np.sqrt(np.mean(np.abs(sd) ** 2))).astype(np.complex64)
+    prod = sd * zc_conj
+    ref = np.asarray(jnp.abs(jnp.conj(zc_j) @ (jnp.asarray(sd)[:, None] *
+                                               p_mat_j)))
+    row = np.zeros(nfft, np.complex64)
+    row[bins] = prod.reshape(m0, nsb).sum(0)
+    got = np.abs(stockham(row, inverse=True))[np.arange(cp + 1) % nfft]
+    assert np.abs(got - ref).max() <= 1e-5 * ref.max()
+    assert int(np.argmax(got)) == int(np.argmax(ref)) == d0
+    tw = fft.twiddles(nfft)
+    col = np.conj(tw[(bins.astype(np.int64) * d0) % nfft])
+    np.testing.assert_allclose(col, np.asarray(p_mat_j)[:nsb, d0],
+                               rtol=0, atol=1e-7)
+    np.testing.assert_array_equal(trk.delay_matrix(cfg), np.asarray(p_mat_j))
+
+
+def _lte_buffer():
+    """A short LTE1024 buffer (_LTE_SHORT, 80 dB) and its config."""
+    return _LTE_SHORT, _buffer(_LTE_SHORT)[1]
+
+
+@pytest.mark.parametrize("case", ["golden64", "lte1024"])
+def test_step_that_does_not_fire_is_a_fixed_point(golden, case):
+    """What both routes' early exit rests on: along track_scan_plain's step
+    (make_tracker_step), every step after the first that does not fire
+    (the loop count stays) has that step's carry, bit for bit, and its
+    outputs (accept false, pointer, delay, peak, a zero channel row)."""
+    if case == "golden64":
+        cfg, rx = port_cfg(G64), golden[1]
+    else:
+        cfg, rx = _lte_buffer()
+        cfg = port_cfg(cfg)
+    x = torch.from_numpy(rx)[None]
+    step = trk.make_tracker_step(cfg, x, 0, x.shape[1])
+    carry, fired, frozen = trk.tracker_init_carry(1), 0, None
+    for _ in range(x.shape[1] // trk.tracker_stride(cfg) + 1):
+        new, y = step(carry)
+        if int(new.loop_count) == int(carry.loop_count):
+            frozen = (new, y)
+            break
+        carry, fired = new, fired + 1
+    assert frozen is not None and fired >= cfg.num_patterns
+    new, y = frozen
+    assert not bool(y[0]) and not bool(y[4].abs().any())
+    for a, b in zip(new, carry):
+        assert torch.equal(a, b)
+    for _ in range(40):
+        new, y2 = step(new)
+        for a, b in zip(new, carry):
+            assert torch.equal(a, b)
+        for a, b in zip(y2, y):
+            assert torch.equal(a, b)
