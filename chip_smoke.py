@@ -73,6 +73,15 @@ within 1e-4 of the bits; K4 against its plain versions at the step's
 search shape.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
 flat and a Fading 2x2 channel delayed by 40 samples, noise-free (every key
 recovered) and at 40 dB, both locks as expected in every exchange.
+``oracle_run``: the card's full-width paths against the port's numpy
+oracles (``reference_cpu/``: NumPy loops that share only the configuration
+with the port's paths), on the same buffers made on the card and copied to
+the host: the first 8 frames of the GOLDEN64 b128 and LTE1024 b32 chains
+(``golden.py``) and of GOLDEN64 QAM64 b128 at its own 24 dB (``qam.py``),
+64 pattern blocks of the CFO case 7 (+1500 Hz) and DSSS case 9 streams
+(``legacy.py``), 4 streams of each tracker cell (``tracker.py``) and 16 PLS
+exchanges (``pls.py``), each with the JAX package's test tolerances and its
+host seconds.
 ``native_check``: an LTE1024 stream made on the card, written from the host
 into the native ring in pieces of at most 4095 samples and pumped in
 chunks of 65280 into ``ReacqStreamingRx`` on the card: the same outputs as
@@ -116,7 +125,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import pathlib
+import platform
 import re
 import subprocess
 import sys
@@ -223,6 +234,16 @@ SHARDED_LEGACY = (("CFO_CASES", 7, (0.0, -1500.0, 1500.0), 1500.0, 63488, 4),
                   ("DSSS_CASES", 9, (0.0,), 0.0, 129024, 2))
 MULTIHOST = ("LTE1024", 16, 2)
 MULTIHOST_TIMEOUT_S = 300
+# the oracle group (oracle_run): the card's paths at full width against the
+# port's numpy oracles (reference_cpu/) on the same buffers, made on the
+# card and copied to the host.  The subsets the oracles run on: frames of a
+# chain cell, pattern blocks of a legacy stream's prefix, streams of a
+# tracker cell, exchanges of the PLS cell; together well under 90 s of host
+# time
+ORACLE_FRAMES = 8
+ORACLE_LEGACY_BLOCKS = 64
+ORACLE_TRACKER_STREAMS = 4
+ORACLE_PLS = 16
 SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
     "ofdm_mod": ("lte_gnu_radio_code_tpu_torch/csrc/ofdm_mod.cu",
                  "lte_gnu_radio_code_tpu/pallas_kernels/ofdm_mod.py:165"),
@@ -1272,6 +1293,13 @@ def check_legacy_detections(cfg, outs, sent, n_real, want_fo, every_block,
     return int(on.sum())
 
 
+def legacy_chunks(cfg) -> tuple[int, int]:
+    """(chunk length, chunks) of a legacy stream: LEGACY_CHUNK_STRIDES
+    strides a chunk, at least LEGACY_SAMPLES samples."""
+    chunk_len = LEGACY_CHUNK_STRIDES * cfg.stride
+    return chunk_len, -(-LEGACY_SAMPLES // chunk_len)
+
+
 def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
     """``LegacyStreamingRx`` at one legacy case (module docstring).  Returns
     (cell name, K2 launches of the main-path run, K2 against its plain
@@ -1285,8 +1313,7 @@ def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
     cases = getattr(params, table)
     cfg = params.config_from_case(cases, case)
     dsss = cases[case]["dsss"]
-    chunk_len = LEGACY_CHUNK_STRIDES * cfg.stride
-    k = -(-LEGACY_SAMPLES // chunk_len)
+    chunk_len, k = legacy_chunks(cfg)
     n_real = k * chunk_len
     cell = (f"{table[:-6]} case {case} (nfft {cfg.nfft}, synch_dat "
             f"{cfg.synch_dat}, dsss {dsss}, {len(fo_range)} candidates, "
@@ -2368,6 +2395,352 @@ def pls_run(dev, gpu) -> None:
                       f"{launches:.1f} device launches a call")
 
 
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo names it (vendor, model name, family
+    and model numbers), its architecture and its logical CPUs."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('vendor_id', '?')} {info.get('model name', '?')} "
+            f"(family {info.get('cpu family', '?')}, model "
+            f"{info.get('model', '?')}, {platform.machine()}), "
+            f"{os.cpu_count()} logical CPUs")
+
+
+def oracle_launches(dev, cell, want) -> dict:
+    """The launch counts since the last reset: ``want`` on a CUDA device
+    (every kernel of the path that fed the oracle), none on the CPU."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    counts = kernels.launch_counts()
+    expect = {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
+              **(want if dev.type == "cuda" else {})}
+    if counts != expect:
+        raise AssertionError(f"{cell}: launches {counts}, expected {expect}")
+    return counts
+
+
+def worst_excess(got, want, rtol=0.0) -> float:
+    """max |got - want| - rtol |want| (numpy), 0 for empty arrays."""
+    d = np.abs(np.asarray(got) - np.asarray(want)) - rtol * np.abs(want)
+    return float(d.max()) if d.size else 0.0
+
+
+def oracle_chain(cfg, batch, frames, dev, cell) -> float:
+    """One chain cell against the oracles (``reference_cpu/golden.py``,
+    ``qam.py`` for QAM) on the same buffers: ``chain_batch``'s two halves
+    on the device (``chain.transmit``: K1, K3 and AWGN at the config's own
+    SNR, as ``noisy_chain_check`` draws them; ``rx_frames_batch``: K4, K2)
+    over ``batch`` frames, K1 once more on the first ``frames`` frames'
+    bits, then the oracle RX on each of those frames' received samples.
+    Gates: TX rows within K1's 2e-5; lock pointer, delay and found equal;
+    QPSK hard bits equal but in a symbol whose oracle phasor lies within
+    2e-4 (K2's tolerance) of a decision boundary
+    (``tests/torch_parity.py``), QAM hard bits equal, and the device's
+    ``maxlog_llr`` on its phasors within 2e-3 + 2e-3 |llr| of the float64
+    oracle's on the same phasors (``tests/test_qam_oracle.py``).  Returns
+    the check's host seconds."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm, txofdm
+    from lte_gnu_radio_code_tpu_torch.ops import modulation
+    from lte_gnu_radio_code_tpu_torch.reference_cpu import golden, qam
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    bits = torch.as_tensor(rng.integers(0, 2, (batch, cfg.num_bits),
+                                        dtype=np.int32), device=dev)
+    n_samples = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n_samples)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    noise = torch.complex(
+        torch.randn(batch, n_samples, generator=gen, device=dev),
+        torch.randn(batch, n_samples, generator=gen, device=dev))
+    is_qam = cfg.modulation not in ("BPSK", "QPSK")
+    kernels.reset_launch_counts()
+    rxs = chain.transmit(cfg, chain.loopback_taps(cfg), bits, noise=noise)
+    r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
+    tx = txofdm.tx_frames(cfg, bits[:frames], path="kernel")
+    if is_qam:
+        _, llr = modulation.maxlog_llr(r.phasors[:frames], cfg.modulation,
+                                       1.0 / cfg.snr_linear)
+        llr = llr.reshape(frames, -1).cpu().numpy()
+    oracle_launches(dev, cell, {"ofdm_mod": 2, "channel_conv": 1,
+                                "sync_search": 1, "equalize": 1})
+    x = rxs[:frames].cpu().numpy().astype(np.complex128)
+    tx, b = tx.cpu().numpy(), bits[:frames].cpu().numpy()
+    hard, ph = r.hard_bits[:frames].cpu().numpy(), r.phasors[:frames].cpu()
+    found, lock, delay = (v[:frames].cpu().numpy()
+                          for v in (r.found, r.lock_ptr, r.delay_idx))
+    t1 = time.perf_counter()
+    tx_err = llr_err = 0.0
+    near = wrong = 0
+    for f in range(frames):
+        tx_err = max(tx_err, float(np.abs(tx[f] - qam.tx_frame(cfg, b[f])
+                                          ).max()))
+        if is_qam:
+            o = qam.rx_frame(cfg, x[f])
+            tsr, hard_o = o["time_synch_ref"], o["hard_bits"]
+            _, llr_o = qam.maxlog_llr(ph[f].numpy().astype(np.complex128),
+                                      cfg.modulation, 1.0 / cfg.snr_linear)
+            llr_err = max(llr_err, worst_excess(llr[f], llr_o, 2e-3))
+        else:
+            ph_o, tsr, _ = golden.rx_frame(cfg, x[f])
+            hard_o = golden.bit_recovery(ph_o)[0]
+        nb = min(len(hard_o), hard.shape[1])
+        differ = (hard[f, :nb] != hard_o[:nb]).reshape(-1, cfg.bits_per_bin
+                                                       ).any(-1)
+        wrong += int((hard_o[:nb] != b[f, :nb]).sum())
+        if is_qam:
+            bad = int(differ.sum())
+        else:
+            d = ph_o.reshape(-1)[:len(differ)]
+            margin = np.minimum(np.abs(d.real), np.abs(d.imag))
+            near += int(differ.sum())
+            bad = int((differ & (margin > 2e-4)).sum())
+        if (bool(found[f]) != bool(tsr[2] > 0) or lock[f] != int(tsr[0]) or
+                delay[f] != int(tsr[1]) or bad):
+            raise AssertionError(
+                f"{cell} frame {f}: found {bool(found[f])} / "
+                f"{bool(tsr[2] > 0)}, lock {lock[f]} / {int(tsr[0])}, delay "
+                f"{delay[f]} / {int(tsr[1])} (device / oracle); {bad} "
+                f"symbols' hard bits differ"
+                f"{'' if is_qam else ' away from a decision boundary'}")
+    t2 = time.perf_counter()
+    if tx_err > 2e-5 or llr_err > 2e-3:
+        raise AssertionError(f"{cell}: TX rows {tx_err:.3e} from the "
+                             f"oracle's (allowed 2e-5), LLRs {llr_err:.3e} "
+                             "beyond 2e-3 + 2e-3 |llr|")
+    llr_txt = (f"; device maxlog_llr within {llr_err:.3e} of the float64 "
+               f"oracle's beyond 2e-3 |llr| (allowed 2e-3)" if is_qam else "")
+    print(f"{cell} at {cfg.snr_db} dB, {frames} of {batch} frames: "
+          f"lock, delay, found == {'qam' if is_qam else 'golden'}.rx_frame "
+          f"in every frame, hard bits equal "
+          f"({'exactly' if is_qam else f'{near} symbols on a boundary'}; "
+          f"the oracle's own bits {wrong} wrong of {frames * nb}); TX rows "
+          f"within {tx_err:.2e} of qam.tx_frame (allowed 2e-5){llr_txt}; "
+          f"host {t2 - t0:.3f} s (oracle {t2 - t1:.3f} s)")
+    return t2 - t0
+
+
+def oracle_legacy(cfg, dsss, fo_range, cfo_hz, n_stream, blocks, dev,
+                  cell) -> float:
+    """One legacy case against ``reference_cpu/legacy.py:rx_frame_cfo``:
+    the stream ``legacy_run`` makes on the device (``make_legacy_stream``
+    of n_stream samples), its first ``blocks`` pattern blocks through the
+    port's ``rx_frame_cfo`` on the device (K2) and through the oracle.
+    Gates (``tests/test_legacy_rx.py``): count, pointers, delays and
+    candidate indices equal; phasors, and with DSSS the despread symbols,
+    within 2e-3.  Returns the check's host seconds."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import legacy_rx
+    from lte_gnu_radio_code_tpu_torch.reference_cpu import legacy
+
+    t0 = time.perf_counter()
+    stream, _ = make_legacy_stream(cfg, n_stream, dsss, cfo_hz, dev)
+    n = blocks * cfg.pattern_len * cfg.rx_b_len
+    max_det = 2 * blocks
+    kernels.reset_launch_counts()
+    r = legacy_rx.make_legacy_rx(cfg, n, fo_range=fo_range, dsss=dsss,
+                                 max_det=max_det, device=dev)(stream[:n])
+    oracle_launches(dev, cell, {"equalize": 1})
+    x = stream[:n].cpu().numpy().astype(np.complex128)
+    count = int(r.count)
+    ints = [v[:count].cpu().numpy() for v in (r.ptrs, r.delays, r.fo_idx)]
+    floats = [v[:count].cpu().numpy() for v in (r.phasors, r.despread)]
+    t1 = time.perf_counter()
+    o = legacy.rx_frame_cfo(cfg, x, fo_range=fo_range, dsss=dsss,
+                            max_det=max_det)
+    t2 = time.perf_counter()
+    nd = int(o["n_det"])
+    tsr = o["time_synch_ref"][:nd]
+    same = count == nd and all(
+        np.array_equal(v, tsr[:, c].astype(int))
+        for v, c in zip(ints, (0, 1, 3)))
+    want = [o["est_data_freq"][:nd]] + ([o["despread"][:nd]] if dsss > 1
+                                        else [])
+    if not same or max(worst_excess(g, w) for g, w in zip(floats, want)
+                       ) > 2e-3:
+        raise AssertionError(
+            f"{cell}: {count} detections on the device, {nd} in the oracle; "
+            f"pointers, delays, candidates equal: {same}; phasors / "
+            f"despread within "
+            f"{[worst_excess(g, w) for g, w in zip(floats, want)]} "
+            "(allowed 2e-3)")
+    # a detection off the pattern-block grid equalises by a channel
+    # estimate of noise, so its phasors are large and so is their float32
+    # rounding: the errors on and off the grid, apart
+    on = on_grid(cfg, ints[0])[1]
+    parts = []
+    for m, where in ((on, "on"), (~on, "off")):
+        err = max(worst_excess(g[m], w[m]) for g, w in zip(floats, want))
+        parts.append(f"{int(m.sum())} {where} the grid within {err:.2e} "
+                     f"(largest |phasor| "
+                     f"{float(np.abs(want[0][m]).max(initial=0.0)):.2f})")
+    print(f"{cell}, {blocks} blocks ({n} samples) of the legacy stream: "
+          f"{nd} detections (candidates "
+          f"{np.bincount(ints[2], minlength=len(fo_range)).tolist()}), count, "
+          f"pointers, delays and candidates == legacy.rx_frame_cfo; "
+          f"phasors{' and despread symbols' if dsss > 1 else ''} of "
+          f"{'; '.join(parts)} (allowed 2e-3); host {t2 - t0:.3f} s "
+          f"(oracle {t2 - t1:.3f} s)")
+    return t2 - t0
+
+
+def oracle_tracker(cfg, xs, streams, dev, cell) -> float:
+    """One tracker cell against ``reference_cpu/tracker.py``: ``make_tracker``
+    on the device over the cell's buffers xs [B, n] (the rule's route, K2),
+    then ``track_synch`` and ``data_demod(fix_rotation=True)`` on each of
+    the first ``streams`` buffers.  Gates (``tests/test_tracker.py``): count
+    and the resolved boundary ptr + delay equal, hard bits equal.  Returns
+    the check's host seconds."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    from lte_gnu_radio_code_tpu_torch.reference_cpu import golden
+    from lte_gnu_radio_code_tpu_torch.reference_cpu import tracker as otrk
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    r = tracker.make_tracker(cfg, xs.shape[1], device=dev)(xs)
+    oracle_launches(dev, cell, {"tracker": 1, "equalize": 1})
+    x = xs[:streams].cpu().numpy().astype(np.complex128)
+    count = r.count[:streams].cpu().numpy()
+    res = (r.ptrs + r.delays)[:streams].cpu().numpy()
+    hard = r.hard_bits[:streams].cpu().numpy()
+    t1 = time.perf_counter()
+    for b in range(streams):
+        tr = otrk.track_synch(cfg, x[b])
+        n = tr["n_det"]
+        tsr = tr["time_synch_ref"]
+        hard_o = golden.bit_recovery(otrk.data_demod(cfg, x[b], tr,
+                                                     fix_rotation=True))[0]
+        nb = min(len(hard_o), hard.shape[1])
+        if (count[b] != n or not np.array_equal(
+                res[b, :n], (tsr[:n, 0] + tsr[:n, 1]).astype(int)) or
+                not np.array_equal(hard[b, :nb], hard_o[:nb])):
+            raise AssertionError(
+                f"{cell} stream {b}: {count[b]} detections on the device, "
+                f"{n} in the oracle; ptr + delay differ in "
+                f"{int((res[b, :n] != tsr[:n, 0] + tsr[:n, 1]).sum())}, "
+                f"hard bits in {int((hard[b, :nb] != hard_o[:nb]).sum())}")
+    t2 = time.perf_counter()
+    print(f"{cell}, {streams} of {len(xs)} streams on the {ktrk.route(cfg)} "
+          f"route: count ({n} a stream), ptr + delay and hard bits == "
+          f"tracker.track_synch / data_demod; host {t2 - t0:.3f} s (oracle "
+          f"{t2 - t1:.3f} s)")
+    return t2 - t0
+
+
+def oracle_pls(batch, n, dev, cell) -> float:
+    """The PLS cell against ``reference_cpu/pls.py``, on n of ``batch``
+    exchanges: unitaries drawn on the device through ``ops.pls.transmit``
+    and the oracle's ``transmit`` (within 1e-5); those buffers over
+    ``pls_channels``' flat channel (delay PLS_DELAY) at PLS_SNR_DB, locked
+    and received on the device (``receive_synced``), the oracle's
+    ``receive`` on the frame cut at the device's lock: lock PLS_DELAY,
+    left singular vectors within 1e-3 (``tests/test_pls.py``); then
+    ``key_exchange`` on the device and the oracle's, each with its own
+    unitaries, over each of ``pls_channels``' channels without its delay
+    (the oracle's receive has perfect timing): both give back every key.
+    Returns the check's host seconds."""
+    from lte_gnu_radio_code_tpu_torch.models import pls
+    from lte_gnu_radio_code_tpu_torch.ops import pls as pls_ops
+    from lte_gnu_radio_code_tpu_torch.reference_cpu import pls as opls
+    from lte_gnu_radio_code_tpu_torch.utils.params import PLSConfig
+
+    t0 = time.perf_counter()
+    cfg = PLSConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    u = pls_ops.random_unitary(
+        gen, (batch, cfg.num_data_symb, cfg.num_subbands), cfg.num_ant)
+    tx = pls_ops.transmit(cfg, u)
+    _, h_flat, want = pls_channels()[0]
+    rx = pls.mimo_channel(cfg, tx, h_flat, PLS_SNR_DB, generator=gen,
+                          out_len=cfg.frame_len + PLS_MAX_DELAY)
+    lsv, _, _, _, lock = pls_ops.receive_synced(cfg, rx, PLS_MAX_DELAY)
+    keys = torch.randint(0, 2, (batch, cfg.pvt_info_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    chans = [(name, h[:, :, PLS_DELAY:]) for name, h, _ in pls_channels()]
+    got = {name: pls.key_exchange(cfg, keys, gen, h0, device=dev)[0][:n]
+           for name, h0 in chans}
+    u, tx, rx, lsv, lock = (v[:n].cpu().numpy() for v in (u, tx, rx, lsv,
+                                                           lock))
+    keys = keys[:n].cpu().numpy()
+    got = {name: v.cpu().numpy() for name, v in got.items()}
+    t1 = time.perf_counter()
+    ref = opls.ref_signal(cfg)
+    tx_err = lsv_err = 0.0
+    for i in range(n):
+        tx_o = opls.transmit(cfg, u[i].astype(np.complex128), ref)
+        tx_err = max(tx_err, float(np.abs(tx[i] - tx_o).max()))
+        frame = rx[i][:, lock[i]:lock[i] + cfg.frame_len]
+        lsv_o = opls.receive(cfg, frame.astype(np.complex128), ref)[0]
+        lsv_err = max(lsv_err, float(np.abs(lsv[i] - lsv_o).max()))
+    wrong = {}
+    for name, h0 in chans:
+        wrong[name] = sum(
+            int((got[name][i] != keys[i]).sum()) + int((opls.key_exchange(
+                cfg, keys[i], np.random.default_rng(SEED + i), h0)[0] !=
+                keys[i]).sum()) for i in range(n))
+    t2 = time.perf_counter()
+    if (tx_err > 1e-5 or lsv_err > 1e-3 or not (lock == want).all() or
+            any(wrong.values())):
+        raise AssertionError(f"{cell}: TX {tx_err:.3e} from the oracle's "
+                             f"(allowed 1e-5), left singular vectors "
+                             f"{lsv_err:.3e} (allowed 1e-3), locks "
+                             f"{np.unique(lock).tolist()} (expected {want}), "
+                             f"key bits wrong (device + oracle) {wrong}")
+    print(f"{cell}, {n} of {batch} exchanges: TX within {tx_err:.2e} of "
+          f"pls.transmit (allowed 1e-5); at {PLS_SNR_DB} dB over the flat "
+          f"channel delayed by {PLS_DELAY} every lock {want} and the left "
+          f"singular vectors within {lsv_err:.2e} of pls.receive (allowed "
+          f"1e-3); key_exchange on the device and pls.key_exchange both give "
+          f"back all {n} keys over the {' and '.join(wrong)} channels; host "
+          f"{t2 - t0:.3f} s (oracle {t2 - t1:.3f} s)")
+    return t2 - t0
+
+
+def oracle_run(dev, gpu) -> None:
+    """The oracle group: the chain cells GOLDEN64 b128 and LTE1024 b32,
+    GOLDEN64 QAM64 b128 at its own 24 dB, legacy CFO case 7 (+1500 Hz) and
+    DSSS case 9, the tracker at GOLDEN64 B 16, LTE1024 and LTE2048 B 4,
+    and PLS b256, each against the port's numpy oracle on the same buffers
+    (``oracle_chain``, ``oracle_legacy``, ``oracle_tracker``,
+    ``oracle_pls``).  Prints each check's host seconds and the group's."""
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    print(f"oracle group on {gpu}; the oracles run on the host's "
+          f"{host_cpu()}")
+    secs = []
+    for cfg_name, batch in CELLS[:2]:
+        secs.append(oracle_chain(getattr(params, cfg_name), batch,
+                                 ORACLE_FRAMES, dev,
+                                 f"oracle {cfg_name} b{batch}"))
+    name, source, changes, batch, _ = QAM_CELLS[0]
+    secs.append(oracle_chain(config_of(source, changes), batch,
+                             ORACLE_FRAMES, dev, f"oracle {name} b{batch}"))
+    print("oracle: the two pilot cells of QAM_CELLS are left out: "
+          "reference_cpu/qam.py has no pilot grid")
+    for table, case, fo_range, cfo_hz in (LEGACY[0], LEGACY[2]):
+        cases = getattr(params, table)
+        cfg = params.config_from_case(cases, case)
+        chunk_len, k = legacy_chunks(cfg)
+        secs.append(oracle_legacy(
+            cfg, cases[case]["dsss"], fo_range, cfo_hz, k * chunk_len,
+            ORACLE_LEGACY_BLOCKS, dev,
+            f"oracle {table[:-6]} case {case} ({cfo_hz:+.0f} Hz)"))
+    for cfg_name, batch, snr_db in (TRACKER, *TRACKER_LTE):
+        cfg = getattr(params, cfg_name)
+        xs, _ = tracker_streams(cfg, batch, snr_db, dev)
+        secs.append(oracle_tracker(cfg, xs, ORACLE_TRACKER_STREAMS, dev,
+                                   f"oracle {cfg_name} tracker B {batch}"))
+    secs.append(oracle_pls(PLS_BATCH, ORACLE_PLS, dev,
+                           f"oracle PLS b{PLS_BATCH}"))
+    print(f"oracle group: every gate held; {sum(secs):.3f} s of host time "
+          f"({', '.join(f'{t:.3f}' for t in secs)}) on {gpu}")
+
+
 def native_check(dev, gpu) -> tuple:
     """The host ingest path: one LTE1024 stream made on the card, copied to
     the host, written into a NativeRing in uneven pieces of at most 4095
@@ -3093,6 +3466,7 @@ def main() -> int:
     for name, sdr_profile, batch in MIMO_CELLS:
         entries += mimo_run(name, sdr_profile, batch, dev, gpu)
     pls_run(dev, gpu)
+    oracle_run(dev, gpu)
     cell, counts, checks = native_check(dev, gpu)
     for name, c in checks.items():
         entries.append(kernel_entry(name, cell, counts[name], c))

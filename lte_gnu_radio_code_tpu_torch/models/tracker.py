@@ -141,8 +141,10 @@ def tracker_stride(cfg: OFDMConfig) -> int:
     return int(np.ceil(cfg.cp_len / 2))
 
 
-def tracker_init_carry(batch: int = 1, device="cpu") -> TrackerCarry:
+def tracker_init_carry(batch: int = 1, device=None) -> TrackerCarry:
     """The empty carry of ``batch`` streams: searching, no history."""
+    device = resolve_device(device)
+
     def i32(v):
         return torch.full((batch,), v, dtype=torch.int32, device=device)
 

@@ -8,9 +8,10 @@ Port of ``lte_gnu_radio_code_tpu/ops/pls.py`` (``random_unitary``,
 ``receive_synced``); its docstrings cite the reference
 (TEST/GNU_RADIO_OFFLINE/pls_aio.py).  Every function takes leading
 exchange axes: precoders [..., S, SB, n, n], time buffers [..., n_ant, T].
-The constant tables (codebook, synch mask, reference symbols, the sync
-search's windows) are this module's own numpy copies of
-``reference_cpu/pls.py``'s, made once per device with ``device_table``.
+The constant tables (codebook, synch mask, reference symbols) come from
+the port's ``reference_cpu/pls.py``, as the JAX module takes them from its
+own; they and the sync search's windows are made once per device with
+``device_table``.
 Nothing here reaches a kernel: the JAX package runs PLS in plain XLA, and
 the sizes are tiny (nfft 64, 2 antennas, 4 x 2 matrices of 2 x 2).
 """
@@ -22,75 +23,21 @@ import functools
 import numpy as np
 import torch
 
+from ..reference_cpu import pls as pls_ref
 from ..utils.params import PLSConfig
 from ..utils.tables import device_table
 from . import sync
 
 
-# -- constant tables (numpy; reference_cpu/pls.py:29-100) -------------------
+# -- constant tables (numpy; reference_cpu/pls.py) ---------------------------
 
 @functools.lru_cache(maxsize=8)
 def _codebook(cfg: PLSConfig) -> np.ndarray:
-    """[2^bits, n, n] complex64 DFT codebook, w[p, n, m] =
-    exp(j 2 pi (n / N) (m + p / 2^B)) / sqrt(N) (pls_aio.py:143-159)."""
-    npre, n_ant = 2 ** cfg.bit_codebook, cfg.num_ant
-    out = np.zeros((npre, n_ant, n_ant), dtype=complex)
-    for p in range(npre):
-        for m in range(n_ant):
-            for n in range(n_ant):
-                out[p, n, m] = np.exp(1j * 2 * np.pi * (n / n_ant) *
-                                      (m + p / npre)) / np.sqrt(n_ant)
-    return out.astype(np.complex64)
+    return pls_ref.codebook(cfg).astype(np.complex64)
 
 
-def _zadoff_chu(cfg: PLSConfig, prime: int) -> np.ndarray:
-    """Length num_synch_bins ZC (pls_aio.py:196-204)."""
-    nb = cfg.num_synch_bins
-    x0 = np.arange(nb)
-    if nb % 2 == 0:
-        return np.exp(-1j * (2 * np.pi / nb) * prime * (x0 ** 2 / 2))
-    return np.exp(-1j * (2 * np.pi / nb) * prime * (x0 * (x0 + 1)) / 2)
-
-
-@functools.lru_cache(maxsize=8)
-def _synch_mask(cfg: PLSConfig) -> np.ndarray:
-    """[n_ant, frame_len] complex128 time-domain synch mask: per synch
-    symbol a ZC with the primes alternating, the antennas alternating every
-    two synch symbols (pls_aio.py:160-193)."""
-    primes = list(cfg.zc_primes) * cfg.num_data_symb
-    signals = np.zeros((cfg.num_synch_symb, cfg.symb_len), dtype=complex)
-    bins = np.asarray(cfg.used_synch_bins())
-    for s in range(cfg.num_synch_symb):
-        freq = np.zeros(cfg.nfft, dtype=complex)
-        freq[bins] = _zadoff_chu(cfg, primes[s])
-        t = np.fft.ifft(freq)
-        t = np.concatenate([t[-cfg.cp_len:], t])
-        p = np.sum(t * np.conj(t)).real / len(t)
-        signals[s] = t / np.sqrt(p)
-    mask = np.zeros((cfg.num_ant, cfg.frame_len), dtype=complex)
-    sc = 0
-    for i, kind in enumerate(cfg.symbol_pattern()):
-        if kind == 0:
-            mod = sc % (cfg.num_ant * len(cfg.zc_primes))
-            ant = 0 if mod in (0, 1) else 1
-            mask[ant, i * cfg.symb_len:(i + 1) * cfg.symb_len] = signals[sc]
-            sc += 1
-    return mask
-
-
-@functools.lru_cache(maxsize=8)
-def _ref_signal(cfg: PLSConfig) -> np.ndarray:
-    """[S, B] complex128 QPSK references exp(j pi/4 {1,3,5,7}), drawn as
-    the reference draws them after np.random.seed(250) (pls_aio.py:309-325),
-    from a RandomState of that seed, which yields the same stream and
-    leaves the caller's global numpy state alone."""
-    rs = np.random.RandomState(250)
-    out = np.zeros((cfg.num_data_symb, cfg.num_data_bins), dtype=complex)
-    for s in range(cfg.num_data_symb):
-        for b in range(cfg.num_data_bins):
-            out[s, b] = np.exp(1j * (np.pi / 4) * rs.choice(
-                np.array([1, 3, 5, 7])))
-    return out
+_synch_mask = functools.lru_cache(maxsize=8)(pls_ref.synch_mask)
+_ref_signal = functools.lru_cache(maxsize=8)(pls_ref.ref_signal)
 
 
 def _ref64(cfg: PLSConfig) -> np.ndarray:

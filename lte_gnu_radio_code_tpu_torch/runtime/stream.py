@@ -83,7 +83,8 @@ def _scalar(value, dtype, device, batch=None) -> torch.Tensor:
                       device=device)
 
 
-def init_state(cfg: OFDMConfig, chunk_len: int, device="cpu") -> StreamState:
+def init_state(cfg: OFDMConfig, chunk_len: int, device=None) -> StreamState:
+    device = resolve_device(device)
     i32 = functools.partial(_scalar, 0, torch.int32, device)
     return StreamState(
         hist=torch.zeros(hist_len_for(cfg), dtype=torch.complex64,
@@ -240,10 +241,11 @@ class ReacqChunkOut(NamedTuple):
     hard_bits: torch.Tensor  # [..., det_max, nd, num_data_bins*bits_per_bin]
 
 
-def reacq_init(cfg: OFDMConfig, device="cpu",
+def reacq_init(cfg: OFDMConfig, device=None,
                batch: int | None = None) -> ReacqState:
     """The empty carry of one stream, or of ``batch`` streams with a leading
     stream axis on every field."""
+    device = resolve_device(device)
     lead = () if batch is None else (batch,)
     i32 = functools.partial(_scalar, 0, torch.int32, device, batch)
     return ReacqState(
@@ -532,7 +534,8 @@ class LegacyChunkOut(NamedTuple):
     despread: torch.Tensor   # [det_max, num_data_bins/dsss]
 
 
-def legacy_init(cfg: OFDMConfig, device="cpu") -> LegacyStreamState:
+def legacy_init(cfg: OFDMConfig, device=None) -> LegacyStreamState:
+    device = resolve_device(device)
     i32 = functools.partial(_scalar, 0, torch.int32, device)
     return LegacyStreamState(
         hist=torch.zeros(legacy_lag(cfg), dtype=torch.complex64,
@@ -658,7 +661,8 @@ class TrackChunkOut(NamedTuple):
     hard_bits: torch.Tensor     # [det_max, nd, num_data_bins*bits_per_bin]
 
 
-def track_stream_init(cfg: OFDMConfig, device="cpu") -> TrackStreamState:
+def track_stream_init(cfg: OFDMConfig, device=None) -> TrackStreamState:
+    device = resolve_device(device)
     i32 = functools.partial(_scalar, 0, torch.int32, device)
     return TrackStreamState(
         hist=torch.zeros(tracker_lag(cfg), dtype=torch.complex64,

@@ -754,3 +754,33 @@ def test_demod_detections_kernel_path_rows(monkeypatch, faded):
     assert late[2].tolist() == [[True, True, False, False, False],
                                 [False] * 5]
     assert not bool(late[1][1].any())
+
+
+@pytest.mark.parametrize("init", ["init_state", "reacq_init", "legacy_init",
+                                  "track_stream_init", "tracker_init_carry"])
+def test_empty_carries_default_to_the_card(init):
+    """The receivers' empty carries, as every entry point, lie on the CUDA
+    device unless the caller asks for the CPU, and raise where there is no
+    card (``utils/device.py:resolve_device``); with device "cpu" they lie
+    on the CPU."""
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+
+    cfg = port_cfg(GOLDEN64)
+    make = {"init_state": lambda **k: rt.init_state(cfg, 960, **k),
+            "reacq_init": lambda **k: rt.reacq_init(cfg, **k),
+            "legacy_init": lambda **k: rt.legacy_init(cfg, **k),
+            "track_stream_init": lambda **k: rt.track_stream_init(cfg, **k),
+            "tracker_init_carry": lambda **k: tracker.tracker_init_carry(
+                2, **k)}[init]
+
+    def fields(state):
+        if isinstance(state, torch.Tensor):
+            return [state]
+        return [t for v in state for t in fields(v)]
+
+    assert {t.device.type for t in fields(make(device="cpu"))} == {"cpu"}
+    if torch.cuda.is_available():
+        assert {t.device.type for t in fields(make())} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

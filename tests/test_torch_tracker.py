@@ -86,7 +86,7 @@ def test_plain_step_carry_bits_equal_jax(golden):
     cfg = port_cfg(G64)
     x = torch.from_numpy(rx)[None]
     step = trk.make_tracker_step(cfg, x, 0, x.shape[1])
-    carry = trk.tracker_init_carry(1)
+    carry = trk.tracker_init_carry(1, device="cpu")
     carries, ys = [], []
     for _ in range(steps):
         carry, y = step(carry)
@@ -329,7 +329,8 @@ def _steps(cfg, x, steps, carry=None):
     """The plain step run by hand: the carry after, and the step outputs
     stacked (channel rows uncompacted [B, steps, nfft])."""
     step = trk.make_tracker_step(cfg, x, 0, x.shape[1])
-    carry = trk.tracker_init_carry(x.shape[0]) if carry is None else carry
+    if carry is None:
+        carry = trk.tracker_init_carry(x.shape[0], device="cpu")
     ys = []
     for _ in range(steps):
         carry, y = step(carry)
@@ -361,8 +362,8 @@ def test_track_scan_plain_returns_the_compacted_table(golden, max_det):
     steps = 12
     c_ref, (acc, ptr, delay, peak, rows) = _steps(cfg, x, steps)
     carry, ys = ktrk.track_scan_plain(cfg, x, 0, x.shape[1],
-                                      trk.tracker_init_carry(2), steps,
-                                      max_det)
+                                      trk.tracker_init_carry(2, device="cpu"),
+                                      steps, max_det)
     assert ys[4].shape == (2, max_det, cfg.nfft)
     n_acc = acc.sum(1)
     assert bool((n_acc > 4).all()) and bool((n_acc < 40).all())
@@ -384,7 +385,8 @@ def test_track_scan_plain_count_restarts_each_call(golden):
     first, steps, max_det = 5, 12, 8
     _, (acc, *_, rows) = _steps(cfg, x, steps)
     c1, y1 = ktrk.track_scan_plain(cfg, x, 0, x.shape[1],
-                                   trk.tracker_init_carry(1), first, max_det)
+                                   trk.tracker_init_carry(1, device="cpu"),
+                                   first, max_det)
     _, y2 = ktrk.track_scan_plain(cfg, x, 0, x.shape[1], c1, steps - first,
                                   max_det)
     assert int(acc[:, :first].sum()) >= 3 and int(acc[:, first:].sum()) >= 3
@@ -417,7 +419,8 @@ def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
     assert ktrk.route_launches == {"warp": 0, "block": 0}
     batch, n, steps, max_det = 3, 4000, 40, 7
     x = torch.zeros(batch, n, dtype=torch.complex64)
-    carry, ys = ktrk.track_scan(pcfg, x, 0, n, trk.tracker_init_carry(batch),
+    carry, ys = ktrk.track_scan(pcfg, x, 0, n,
+                                trk.tracker_init_carry(batch, device="cpu"),
                                 steps, max_det)
     (name, args), = calls
     assert name == ktrk.ENTRY[kind]
@@ -428,15 +431,16 @@ def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
         (batch, max_det, cfg.nfft)]
     assert ys[4].dtype == torch.complex64
     assert [tuple(c.shape) for c in carry] == [
-        tuple(c.shape) for c in trk.tracker_init_carry(batch)]
+        tuple(c.shape)
+        for c in trk.tracker_init_carry(batch, device="cpu")]
     assert kernels.launch_counts()["tracker"] == 1
     other = "block" if kind == "warp" else "warp"
     assert ktrk.route_launches == {kind: 1, other: 0}
     calls.clear()
-    ktrk._launch("block", pcfg, x, 0, n, trk.tracker_init_carry(batch),
-                 steps, max_det)
-    ktrk._launch("warp", pcfg, x, 0, n, trk.tracker_init_carry(batch),
-                 steps, max_det)
+    ktrk._launch("block", pcfg, x, 0, n,
+                 trk.tracker_init_carry(batch, device="cpu"), steps, max_det)
+    ktrk._launch("warp", pcfg, x, 0, n,
+                 trk.tracker_init_carry(batch, device="cpu"), steps, max_det)
     assert [c[0] for c in calls] == ["tracker_scan", "tracker_scan_warp"]
     assert [c[1][-3] for c in calls] == [ktrk.smem_bytes(pcfg, "block"),
                                          ktrk.smem_bytes(pcfg, "warp")]
@@ -445,10 +449,12 @@ def test_wrapper_launches_by_the_route_rule(monkeypatch, cfg, kind):
     assert [c[1][12] == 0 for c in calls] == [True, False]
     assert ktrk.route_launches == {kind: 2, other: 1}
     with pytest.raises(ValueError):
-        ktrk._launch("grid", pcfg, x, 0, n, trk.tracker_init_carry(batch),
-                     steps, max_det)
+        ktrk._launch("grid", pcfg, x, 0, n,
+                     trk.tracker_init_carry(batch, device="cpu"), steps,
+                     max_det)
     with pytest.raises(ValueError):
-        ktrk.track_scan(pcfg, x, 0, n, trk.tracker_init_carry(batch)._replace(
+        ktrk.track_scan(pcfg, x, 0, n, trk.tracker_init_carry(
+            batch, device="cpu")._replace(
             b=torch.zeros(batch, 2, dtype=torch.float64)), steps, max_det)
     kernels.reset_launch_counts()
     assert ktrk.route_launches == {"warp": 0, "block": 0}
@@ -588,7 +594,7 @@ def test_step_that_does_not_fire_is_a_fixed_point(golden, case):
         cfg = port_cfg(cfg)
     x = torch.from_numpy(rx)[None]
     step = trk.make_tracker_step(cfg, x, 0, x.shape[1])
-    carry, fired, frozen = trk.tracker_init_carry(1), 0, None
+    carry, fired, frozen = trk.tracker_init_carry(1, device="cpu"), 0, None
     for _ in range(x.shape[1] // trk.tracker_stride(cfg) + 1):
         new, y = step(carry)
         if int(new.loop_count) == int(carry.loop_count):
