@@ -111,11 +111,20 @@ sharded path handed them.  ``multihost_run``: two processes of this script
 (``--multihost-worker``) on the one card over gloo, dp = 2 x t = 2, 16
 LTE1024 frames each: every frame locked with BER 0, the gathered results
 == one process's chain on the same noise; beside them a process group of
-one on the default backend, NCCL (``--nccl-worker``).
+one on the default backend, NCCL (``--nccl-worker``).  ``cards_run``: "t"
+across processes (``--cards-worker``), 2 x 2 shards, on this card over
+gloo: the LTE1024 and GOLDEN64 sharded RX, the LTE1024 reacq stream and
+the CFO case 7 legacy stream, then dp 2 x "t" 4 in 4 processes on the
+LTE1024 b32 chain; over NCCL, one process a card, where 2 cards or more
+are visible (else it says so).  Every worker exits 0; every rank == this
+process's stacked run of the same mesh shape on the same buffers, one K4
+and one K2 launch a call or step; ms beside the stacked twin's and the
+bytes a rank hands the group; rank 0's K4 and K2 rows at its shapes.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--tracker-block``: the block route's LTE1024 and LTE2048 paths alone;
-a copy of the script in a parent commit's tree times that tree's kernel.)
+a copy of the script in a parent commit's tree times that tree's kernel.
+``--cards [gloo|nccl]``: ``cards_run`` alone.)
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
 """
@@ -234,6 +243,16 @@ SHARDED_LEGACY = (("CFO_CASES", 7, (0.0, -1500.0, 1500.0), 1500.0, 63488, 4),
                   ("DSSS_CASES", 9, (0.0,), 0.0, 129024, 2))
 MULTIHOST = ("LTE1024", 16, 2)
 MULTIHOST_TIMEOUT_S = 300
+# "t" across processes (cards_run): the RX cells, the reacq and legacy
+# streams and the chain of the sharded phases above, "t" over CARDS_T_PROCS
+# processes of CARDS_T_LOCAL shards each
+CARDS_RX = (("LTE1024", 4), ("GOLDEN64", 4))
+CARDS_STREAM = SHARDED_STREAMS[0]
+CARDS_LEGACY = SHARDED_LEGACY[0]
+CARDS_CHAIN = ("LTE1024", 32, 4)      # dp 2 x "t" 4
+CARDS_T_PROCS = 2
+CARDS_REPS = 5                        # RX calls / chain steps a timed round
+CARDS_TIMEOUT_S = 300
 # the oracle group (oracle_run): the card's paths at full width against the
 # port's numpy oracles (reference_cpu/) on the same buffers, made on the
 # card and copied to the host.  The subsets the oracles run on: frames of a
@@ -3372,6 +3391,358 @@ def multihost_run(dev, gpu) -> None:
           f"chain on the same noise, on {gpu}")
 
 
+def cards_config(job):
+    from lte_gnu_radio_code_tpu_torch.utils import params
+    if job["kind"] == "legacy":
+        return params.config_from_case(getattr(params, job["table"]),
+                                       job["case"])
+    return fit_halo(getattr(params, job["cfg"]), job["t"])
+
+
+def cards_jobs(dev) -> tuple[dict, dict]:
+    """The buffers of ``cards_run``, made on the card as the sharded phases
+    make theirs and copied to the host, by cell: the jobs of the
+    2-process group (CARDS_RX, CARDS_STREAM, CARDS_LEGACY) and the chain's
+    (CARDS_CHAIN)."""
+    from lte_gnu_radio_code_tpu_torch.models import chain
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    jobs = {}
+    for cfg_name, t in CARDS_RX:
+        job = dict(kind="rx", cfg=cfg_name, t=t)
+        cfg = cards_config(job)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        bits = torch.randint(0, 2, (1, cfg.num_bits), generator=gen,
+                             device=dev, dtype=torch.int32)
+        job["x"] = chain.transmit(cfg, chain.loopback_taps(cfg), bits,
+                                  generator=gen)[0].cpu()
+        jobs[f"{cfg_name} sharded RX t{t}"] = job
+    cfg_name, chunk_len, k, t = CARDS_STREAM
+    streams, _ = make_streams(getattr(params, cfg_name), 1, k * chunk_len,
+                              dev)
+    jobs[f"{cfg_name} sharded stream t{t}, chunk {chunk_len} x {k}"] = dict(
+        kind="reacq", cfg=cfg_name, t=t,
+        chunks=streams[0].reshape(k, chunk_len).cpu())
+    table, case, fo_range, cfo_hz, chunk_len, t = CARDS_LEGACY
+    job = dict(kind="legacy", table=table, case=case, t=t, fo_range=fo_range,
+               dsss=getattr(params, table)[case]["dsss"])
+    k = -(-LEGACY_SAMPLES // chunk_len)
+    stream, _ = make_legacy_stream(cards_config(job), k * chunk_len,
+                                   job["dsss"], cfo_hz, dev)
+    job["chunks"] = stream.reshape(k, chunk_len).cpu()
+    jobs[f"{table[:-6]} case {case} sharded stream t{t} ({cfo_hz:+.0f} Hz, "
+         f"chunk {chunk_len} x {k})"] = job
+    cfg_name, batch, t = CARDS_CHAIN
+    job = dict(kind="chain", cfg=cfg_name, t=t)
+    cfg = cards_config(job)
+    job["bits"] = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, 2, (batch, cfg.num_bits), dtype=np.int32))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n = cfg.frame_len + cfg.nfft - 1
+    job["noise"] = torch.complex(
+        torch.randn(batch, n, generator=gen, device=dev),
+        torch.randn(batch, n, generator=gen, device=dev)).cpu()
+    return jobs, {f"{cfg_name} dp x t{t} chain b{batch}": job}
+
+
+def cards_path(job, mesh):
+    """run() drives the job's path once on the mesh (a stream: a fresh
+    receiver, ``push_many`` of every chunk and ``finish``) and returns its
+    outputs by field."""
+    from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
+    from lte_gnu_radio_code_tpu_torch.parallel import sharded, streaming
+
+    cfg, kind, dev = cards_config(job), job["kind"], mesh.device
+    if kind == "rx":
+        x = job["x"].to(dev)
+        rx = sharded.make_sharded_rx(cfg, x.shape[-1], mesh)
+        return lambda: rx(x)._asdict()
+    if kind == "chain":
+        step = pchain.make_sharded_chain(cfg, mesh)
+        bits, noise = job["bits"].to(dev), job["noise"].to(dev)
+        return lambda: dict(zip(("ber", "found", "lock"),
+                                step(bits, noise=noise)))
+    chunks = job["chunks"].to(dev)
+    if kind == "reacq":
+        def make():
+            return streaming.ShardedReacqStreamingRx(cfg, chunks.shape[1],
+                                                     mesh)
+    else:
+        def make():
+            return streaming.ShardedLegacyStreamingRx(
+                cfg, chunks.shape[1], mesh, fo_range=job["fo_range"],
+                dsss=job["dsss"])
+
+    def run():
+        rx = make()
+        return cat_outs([rx.push_many(chunks),
+                         stack_outs(rx.finish())])._asdict()
+
+    run.make = make
+    return run
+
+
+def cards_ms(run, reps, steps, barrier=None) -> tuple[float, list]:
+    """Host ms a call or chunk step of run(), each of three rounds of reps
+    runs ending in a synchronize (after a barrier, in a group): (the
+    median, every round's)."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / (reps * steps))
+    return sorted(times)[1], times
+
+
+@contextlib.contextmanager
+def group_traffic():
+    """The payload bytes this process hands ``torch.distributed`` inside
+    the block (each all_reduce's and all_gather's own tensor, each send's)
+    and the number of those calls."""
+    import torch.distributed as dist
+
+    sent = {"bytes": 0, "calls": 0}
+    saved = (dist.all_reduce, dist.all_gather_into_tensor,
+             dist.batch_isend_irecv)
+
+    def add(n):
+        sent["bytes"] += n
+        sent["calls"] += 1
+
+    def all_reduce(x, *args, **kw):
+        add(x.nbytes)
+        return saved[0](x, *args, **kw)
+
+    def all_gather_into_tensor(out, x, *args, **kw):
+        add(x.nbytes)
+        return saved[1](out, x, *args, **kw)
+
+    def batch_isend_irecv(ops):
+        add(sum(o.tensor.nbytes for o in ops if o.op is dist.isend))
+        return saved[2](ops)
+
+    (dist.all_reduce, dist.all_gather_into_tensor,
+     dist.batch_isend_irecv) = (all_reduce, all_gather_into_tensor,
+                                batch_isend_irecv)
+    try:
+        yield sent
+    finally:
+        (dist.all_reduce, dist.all_gather_into_tensor,
+         dist.batch_isend_irecv) = saved
+
+
+def cards_gate(cfg, kind, steps, cell) -> None:
+    """The launches a rank made on the main path, read from the counts:
+    one K4 (on the rule's route) and one K2 a call or chunk step (the
+    legacy receiver K2 alone), K1 and K3 too on the chain."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+
+    counts, routes = kernels.launch_counts(), dict(sync_search.route_launches)
+    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "equalize": steps,
+            "sync_search": 0 if kind == "legacy" else steps}
+    if kind == "chain":
+        want.update(ofdm_mod=steps, channel_conv=steps)
+    route = (None if kind == "legacy" else sync_search.route(
+        cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch))
+    if counts != want or (route and routes[route] != steps):
+        raise AssertionError(f"{cell}: {steps} calls or steps, launches "
+                             f"{counts}, by route {routes} ({route} "
+                             "expected)")
+
+
+def cards_worker(pid: int, nproc: int, coord: str, jobs_path: str,
+                 backend: str) -> None:
+    """One process of ``cards_run``: "t" over CARDS_T_PROCS processes of
+    its group (gloo: every process on cuda:0; NCCL: a card each).  For
+    each job: a warm-up run, the main-path run with the launch counts set
+    to 0 before it and gated after it (and the payload bytes handed to the
+    group), three timed rounds, over NCCL one more chunk step under sync
+    debug mode "error", and a run whose kernel inputs rank 0 holds K4 and
+    K2 against their plain versions on.  Writes its results beside the
+    jobs file."""
+    import torch.distributed as dist
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.parallel import multihost
+
+    multihost.init_distributed(coord, nproc, pid, backend=backend,
+                               device="cuda:0" if backend == "gloo" else None)
+    jobs = torch.load(jobs_path)
+    results = {}
+    for cell, job in jobs.items():
+        mesh = multihost.multihost_mesh(t=job["t"], t_procs=CARDS_T_PROCS)
+        cfg = cards_config(job)
+        run = cards_path(job, mesh)
+        run()                                           # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        with group_traffic() as sent:
+            out = run()
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        steps = out["valid"].shape[0] if "valid" in out else 1
+        cards_gate(cfg, job["kind"], steps, f"{cell}: rank {pid}")
+        if job["kind"] == "chain":
+            out = dict(zip(out, multihost.gather_frames(mesh, *out.values())))
+        ms, rounds = cards_ms(run, CARDS_REPS if steps == 1 else 1, steps,
+                              dist.barrier)
+        if backend == "nccl" and steps > 1:
+            rx = run.make()
+            rx.push(job["chunks"][0].to(mesh.device))
+            no_host_sync(rx, job["chunks"][1].to(mesh.device),
+                         f"{cell}: rank {pid}")
+        with kernel_inputs() as seen:
+            run()
+        checks = (path_checks(cfg, seen, f"{cell} [rank 0 of {nproc}]",
+                              step=min(1, steps - 1))
+                  if pid == 0 and backend == "gloo" else None)
+        dist.barrier()
+        results[cell] = dict(out={k: v.cpu() for k, v in out.items()},
+                             counts=counts, steps=steps, ms=ms, rounds=rounds,
+                             sent=sent, checks=checks, mesh=dict(
+                                 mesh.shape, t_local=mesh.t_local))
+    torch.save(results, f"{jobs_path}.{pid}")
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"CARDS_OK rank={pid} world={nproc} backend={backend} "
+          f"t_procs={CARDS_T_PROCS} device={mesh.device}", flush=True)
+
+
+def cards_spawn(jobs_path, nproc, backend) -> tuple[list, float]:
+    """nproc worker processes of this script on the jobs file: each rank's
+    results and the wall seconds, start-up included.  Fails where a worker
+    exits nonzero, lacks its OK line or outlasts CARDS_TIMEOUT_S."""
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--cards-worker", str(pid), str(nproc),
+         coord, str(jobs_path), backend], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=CARDS_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0 or f"CARDS_OK rank={pid} world={nproc}" \
+                not in text:
+            raise AssertionError(f"cards {backend} worker {pid} of {nproc}: "
+                                 f"exit {p.returncode}, output:\n"
+                                 f"{text[-4000:]}")
+    for line in texts[0].splitlines():
+        if ": sync_search " in line or ": equalize " in line:
+            print("  " + line)
+    # the workers' own files (their kernel rows hold numpy scalars)
+    return [torch.load(f"{jobs_path}.{pid}", weights_only=False)
+            for pid in range(nproc)], wall
+
+
+def as_outs(d):
+    """A dict of outputs as a NamedTuple, for :func:`same_outs`."""
+    import collections
+    return collections.namedtuple("Outs", d)(**d)
+
+
+def cards_layout(jobs, tmp, backend, nproc, gpu, entries) -> float:
+    """One spawn of ``cards_run`` and its gates: every rank's results ==
+    this process's stacked run of the same mesh shape on the same buffers
+    (integers exact, floats within 2e-4), every frame of the chain locked
+    with BER 0; ms beside the stacked twin's, the payload bytes each rank
+    hands the group.  Rank 0's kernel rows go into ``entries`` (gloo).
+    Returns the spawn's wall seconds."""
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh
+
+    path = tmp / f"{backend}{nproc}.pt"
+    torch.save(jobs, path)
+    ranks, wall = cards_spawn(path, nproc, backend)
+    dp = nproc // CARDS_T_PROCS
+    where = ("cuda:0" if backend == "gloo" else "a card each")
+    for cell, job in jobs.items():
+        t = job["t"]
+        twin = cards_path(job, mesh.make_mesh(dp * t, dp=dp)
+                          if job["kind"] == "chain" else mesh.time_mesh(t))
+        ref = twin()
+        torch.cuda.synchronize()
+        first = ranks[0][cell]
+        worst = max(same_outs(as_outs(r[cell]["out"]), as_outs(
+            {k: v.cpu() for k, v in ref.items()}),
+            f"{cell}: rank {i} of {nproc} ({backend}) vs the stacked run",
+            float_atol=2e-4) for i, r in enumerate(ranks))
+        if job["kind"] == "chain" and not (
+                bool(ref["found"].all()) and float(ref["ber"].max()) == 0):
+            raise AssertionError(f"{cell}: frames unlocked or BER above 0")
+        steps = first["steps"]
+        t_ms, t_rounds = cards_ms(twin, CARDS_REPS if steps == 1 else 1,
+                                  steps)
+        what = "a call" if steps == 1 else "a chunk step"
+        label = (f"{cell} [{backend}: dp {dp} x \"t\" {t} over "
+                 f"{CARDS_T_PROCS} processes of {first['mesh']['t_local']} "
+                 f"shards, {where}]")
+        sent = ", ".join(str(r[cell]["sent"]["bytes"] // steps)
+                         for r in ranks)
+        print(f"{label}: every rank == the stacked run (integer fields "
+              f"equal, floats within {worst:.2e}); launches a rank "
+              f"{first['counts']} in {steps} calls or steps; payload bytes "
+              f"a rank hands the group {what}: {sent} in "
+              f"{first['sent']['calls'] / steps:.1f} calls")
+        print(f"{label}: {first['ms']:.3f} ms {what} (rounds "
+              f"{', '.join(f'{v:.3f}' for v in first['rounds'])}); the "
+              f"stacked twin {t_ms:.3f} (rounds "
+              f"{', '.join(f'{v:.3f}' for v in t_rounds)}); group / stacked "
+              f"{first['ms'] / t_ms:.3f}x, on {gpu}")
+        for name, c in (first["checks"] or {}).items():
+            entries.append(kernel_entry(name, f"{cell}, \"t\" over "
+                                        f"{nproc} processes",
+                                        first["counts"][name], c))
+    return wall
+
+
+def cards_run(dev, gpu, backends=("gloo", "nccl")) -> list:
+    """"t" across processes (``multihost_mesh(t_procs=...)``).  Layout A,
+    on this card: two worker processes of this script over gloo, "t" 4 as
+    2 x 2 shards, on the sharded RX (CARDS_RX), the reacq stream and the
+    CFO case 7 legacy stream; then four, dp 2 x t_procs 2, on the LTE1024
+    b32 chain.  Layout B, where 2 cards or more are visible: the same over
+    NCCL, one process a card (the chain at dp 2 on 4 cards, else dp 1),
+    with a chunk step under sync debug mode "error".  ``backends`` names
+    the layouts to run.  Returns the ``kernels`` line's entries (layout A's
+    rank 0)."""
+    jobs, chain_jobs = cards_jobs(dev)
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        if "gloo" in backends:
+            wall = cards_layout(jobs, tmp, "gloo", CARDS_T_PROCS, gpu,
+                                entries)
+            wall += cards_layout(chain_jobs, tmp, "gloo", 2 * CARDS_T_PROCS,
+                                 gpu, entries)
+            print(f"cards gloo: the worker groups took {wall:.1f} s with "
+                  f"start-up")
+        if "nccl" not in backends:
+            return entries
+        n = torch.cuda.device_count()
+        if n < 2:
+            print(f"cards nccl: not run ({n} card visible)")
+            return entries
+        wall = cards_layout(jobs, tmp, "nccl", CARDS_T_PROCS, gpu, [])
+        wall += cards_layout(chain_jobs, tmp, "nccl", min(
+            n // CARDS_T_PROCS, 2) * CARDS_T_PROCS, gpu, [])
+        print(f"cards nccl: {n} cards visible; the worker groups took "
+              f"{wall:.1f} s with start-up")
+    return entries
+
+
 def kernel_entry(name, cell, launches, c) -> dict:
     """One entry of the ``kernels`` line: the main path's launch count and
     what :func:`compare` measured."""
@@ -3484,11 +3855,22 @@ def main() -> int:
         cell, launches, check = sharded_legacy_run(*args, dev, gpu)
         entries.append(kernel_entry("equalize", cell, launches, check))
     multihost_run(dev, gpu)
+    entries += cards_run(dev, gpu)
     print(json.dumps({"kernels": entries}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def cards_main(backends) -> int:
+    """``--cards [gloo|nccl]``: ``cards_run`` alone (one layout where it is
+    named), with its gates, times and ``kernels`` entries: the way to run
+    layout B on a host of several cards without the rest of the script."""
+    if (started := start()) is None:
+        return 1
+    print(json.dumps({"kernels": cards_run(*started, backends)}))
     return 0
 
 
@@ -3516,5 +3898,9 @@ if __name__ == "__main__":
         multihost_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     elif sys.argv[1:2] == ["--nccl-worker"]:
         nccl_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--cards-worker"]:
+        cards_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_main(sys.argv[2:3] or ("gloo", "nccl")))
     else:
         sys.exit(main())

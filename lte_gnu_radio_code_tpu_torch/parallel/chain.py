@@ -8,8 +8,10 @@ stacked shards, and the time-sharded RX body (``parallel/sharded.py``)
 runs over every frame's shards at once: one K4 and one K2 launch a step,
 whatever the batch and t.  Within one process "dp" only requires the
 batch to split evenly; on a mesh from ``parallel/multihost.py`` each
-process takes its own rows of the batch, and frames need no traffic
-between processes.
+process takes the rows of its place in the "dp" group, and frames need no
+traffic between processes.  Where "t" spans processes too, the processes
+of a "t" group take the same rows and run TX and channel on them each,
+and the RX crosses the group inside each frame.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ from . import sharded
 
 def local_rows(mesh: pmesh.Mesh, batch: int) -> slice:
     """The rows of a [batch, ...] input that this process takes: all of
-    them in one process, the dp-th part of its rank on a multi-process
-    mesh.  Raises where the batch does not split over dp."""
+    them in one process, on a multi-process mesh the part of its rank in
+    the "dp" group (every process of a "t" group takes the same).  Raises
+    where the batch does not split over dp."""
     dp = mesh.shape.get("dp", 1)
     if batch % dp:
         raise ValueError(f"batch {batch} does not split over dp = {dp}")
@@ -43,7 +46,8 @@ def make_sharded_chain(cfg: OFDMConfig, mesh: pmesh.Mesh):
     mesh each process gives its own rows (:func:`local_rows`) and
     ``multihost.gather_frames`` puts them together.  ``noise`` [B,
     frame_len + nfft - 1] is the global batch's, as ``bits``; a
-    ``generator`` draws the noise of this process's frames.  The search
+    ``generator`` draws the noise of this process's frames (the processes
+    of a "t" group must seed theirs alike).  The search
     and demod go through the kernels' wrappers, as ``chain_batch``'s do: K4
     and K2 on a CUDA device, their plain twins on the CPU.  Raises
     ``ValueError`` where a shard would be smaller than the halo."""

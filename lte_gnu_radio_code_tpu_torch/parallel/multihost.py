@@ -1,12 +1,16 @@
-"""Multi-process runs: the frame axis "dp" across processes.
+"""Multi-process runs: the frame axis "dp" across processes, and "t"
+across the processes of a host.
 
 Port of ``lte_gnu_radio_code_tpu/parallel/multihost.py``.  Every process
-runs the same program and calls :func:`init_distributed` first; the mesh
-of :func:`multihost_mesh` puts "dp" across the processes and stacks the
-"t" shards on each process's device (``parallel/mesh.py``): one card a
-process, so a host with several cards runs a process for each.  Frames on
+runs the same program and calls :func:`init_distributed` first; one
+process drives one card.  The mesh of :func:`multihost_mesh` puts "dp"
+across the processes and stacks the "t" shards on each process's device
+(``parallel/mesh.py``), or, with ``t_procs`` > 1, spreads "t" over
+``t_procs`` processes of a host as the JAX package's mesh spreads it over a
+host's chips: "dp" then spans the hosts, and the halo exchange and the
+merges of the sharded bodies cross between a host's cards.  Frames on
 "dp" need no traffic between processes inside the chain
-(``parallel/chain.py``): only the results cross the group
+(``parallel/chain.py``): only the results cross the "dp" group
 (:func:`gather_frames`), and a barrier ends the run.
 
 On a single process, without a coordinator, this degrades gracefully: no
@@ -67,26 +71,49 @@ def init_distributed(coordinator: str | None = None,
     return True
 
 
-def multihost_mesh(t: int = 1, axis_names=("dp", "t"),
-                   device=None) -> pmesh.Mesh:
-    """dp = the processes, t = the shards each process stacks on its
-    device (None: its current CUDA card, the one :func:`init_distributed`
-    chose).  One process drives one card: to use every card of a host,
-    start a process for each."""
-    group = dist.group.WORLD if dist.is_initialized() else None
-    dp = dist.get_world_size() if group is not None else 1
+def multihost_mesh(t: int = 1, axis_names=("dp", "t"), device=None,
+                   t_procs: int = 1) -> pmesh.Mesh:
+    """The (dp, t) mesh over the processes, on this process's device
+    (None: its current CUDA card, the one :func:`init_distributed` chose).
+
+    ``t`` is the size of "t".  With ``t_procs`` = 1, dp = the processes and
+    each stacks all t shards on its device.  With ``t_procs`` > 1 every
+    t_procs consecutive ranks (a host's cards, with processes numbered host
+    by host) form a "t" group, each stacking t // t_procs shards, and dp =
+    world // t_procs: "dp" joins the ranks at one position of every "t"
+    group.  Every process creates every group, in the same order.  Raises
+    ``ValueError`` where t_procs divides the world or t unevenly."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if t_procs < 1 or world % t_procs or t % t_procs:
+        raise ValueError(f"t = {t} over a world of {world} processes does "
+                         f"not split into t_procs = {t_procs}")
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return pmesh.Mesh(tuple(axis_names), dict(zip(axis_names, (dp, t))),
-                      device, group)
+    dp = world // t_procs
+    shape = dict(zip(axis_names, (dp, t)))
+    if not dist.is_initialized():
+        return pmesh.Mesh(tuple(axis_names), shape, device)
+    if t_procs == 1:
+        return pmesh.Mesh(tuple(axis_names), shape, device, dist.group.WORLD)
+    t_groups = [dist.new_group([d * t_procs + j for j in range(t_procs)])
+                for d in range(dp)]
+    dp_groups = [dist.new_group([d * t_procs + j for d in range(dp)])
+                 for j in range(t_procs)]
+    rank = dist.get_rank()
+    return pmesh.Mesh(tuple(axis_names), shape, device,
+                      group=dp_groups[rank % t_procs],
+                      t_group=t_groups[rank // t_procs],
+                      t_rank=rank % t_procs, t_local=t // t_procs)
 
 
 def gather_frames(mesh: pmesh.Mesh, *tensors: torch.Tensor):
-    """Each process's rows of per-frame results, end to end in rank order:
-    the global [B, ...] on every process (the tensors themselves on a mesh
-    without a group).  Over gloo the rows cross as CPU copies and come back
-    on the CPU; over NCCL on the device."""
+    """Each process's rows of per-frame results, end to end in the order of
+    the "dp" group: the global [B, ...] on every process (the tensors
+    themselves on a mesh without a group).  The processes of a "t" group
+    hold the same rows, so the rows cross the "dp" group alone.  Over gloo
+    the rows cross as CPU copies and come back on the CPU; over NCCL on
+    the device."""
     if mesh.group is None:
         return tensors
     world = dist.get_world_size(mesh.group)

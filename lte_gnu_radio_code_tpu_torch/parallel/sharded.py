@@ -20,7 +20,14 @@ body follows the JAX one step by step:
 
 Halo: a sync trial at relative offset cp + j*stride reads up to
 (m_synch - 1)*(nfft + cp) + nfft further, a data block based at the chunk
-edge up to (pattern_len - 1)*(nfft + cp) + nfft; the halo is the larger.
+edge up to (pattern_len - 1)*(nfft + cp) + nfft; the halo is the larger,
+and only those samples cross to the neighbour.
+
+On a mesh whose "t" spans processes (``parallel/mesh.py``) each process
+takes its own shards of the padded buffer (:func:`shard`), the
+collectives cross the group, and every output is replicated on each
+process of the group, as the JAX ``out_specs`` give it.  The merges stay
+exact: one shard owns each nonzero entry of every sum.
 """
 
 from __future__ import annotations
@@ -68,9 +75,11 @@ def check_shards(cfg: OFDMConfig, local: int) -> None:
 
 def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
               num_patterns: int, fast: str | None = None,
-              demod_path: str | None = None) -> RxResult:
-    """The body over every shard at once: x_local [..., t, local] (the
-    leading dims are frames) -> RxResult of each frame, as the
+              demod_path: str | None = None,
+              mesh: pmesh.Mesh | None = None) -> RxResult:
+    """The body over this process's shards at once: x_local [..., t,
+    local] (the leading dims are frames; t the shards this process stacks
+    on ``mesh``) -> RxResult of each frame, as the
     single-device ``rxofdm.rx_frame`` gives it without a pilot grid (as
     the JAX body, every data symbol takes the synch symbols' channel
     estimate).  ``fast`` and ``demod_path`` select the search and the demod
@@ -81,12 +90,13 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     check_shards(cfg, local)
     dev = x_local.device
     stride = max(1, cfg.stride)
-    i = pmesh.axis_index(n_shards, dev)
+    i = pmesh.axis_index(n_shards, dev, mesh)
     a0 = i * local                                   # each chunk's global start
 
     # -- 1. halo exchange: the right neighbour's first `halo` samples --------
-    nbr = pmesh.ppermute(x_local, -1, dim=-2)
-    ext = torch.cat([x_local, nbr[..., :halo_size(cfg)]], -1)
+    nbr = pmesh.ppermute(x_local[..., :halo_size(cfg)], -1, dim=-2,
+                         mesh=mesh)
+    ext = torch.cat([x_local, nbr], -1)
 
     # -- 2. local sync search -------------------------------------------------
     t_per = local // stride                          # trials per shard
@@ -99,7 +109,7 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     found_local = crossing.any(-1)                   # [..., t]
     first_j = crossing.to(torch.int32).argmax(-1)    # [..., t]
     key = torch.where(found_local, i * t_per + first_j, INT_MAX)
-    gmin = pmesh.pmin(key, -1)
+    gmin = pmesh.pmin(key, -1, mesh)
     found = gmin < INT_MAX
     is_winner = found_local & (key == gmin[..., None])
     gmin = torch.where(found, gmin, 0)
@@ -108,8 +118,10 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     def at_first(v):
         return v.gather(-1, first_j[..., None])[..., 0]
 
-    delay_idx = pmesh.psum(torch.where(is_winner, at_first(dmax_ind), 0), -1)
-    peak = pmesh.psum(torch.where(is_winner, at_first(dmax_val), 0.0), -1)
+    delay_idx = pmesh.psum(torch.where(is_winner, at_first(dmax_ind), 0), -1,
+                           mesh)
+    peak = pmesh.psum(torch.where(is_winner, at_first(dmax_val), 0.0), -1,
+                      mesh)
     # the channel from the winner's spectrum alone: the JAX body's psum of
     # winner-weighted estimates, where every other shard adds zero
     win_shard = is_winner.to(torch.int32).argmax(-1)[..., None]
@@ -118,6 +130,11 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     spec = sync.sync_spectrum_at(
         cfg, ext_w, first_j.gather(-1, win_shard)[..., 0],
         method="dft" if fast == "kernel" else None)
+    if mesh is not None and mesh.t_group is not None:
+        # the winner's process alone holds its row: its spectrum crosses
+        # (where none won, the estimate is zeroed below either way)
+        spec = pmesh.psum(torch.where(is_winner.any(-1, keepdim=True), spec,
+                                      0)[..., None, :], -2, mesh)
     _, chan_full, cir = sync.estimate_channel(cfg, spec, delay_idx)
     chan_full, cir = (v * found[..., None] for v in (chan_full, cir))
 
@@ -144,7 +161,7 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     ph = vals.new_zeros(*vals.shape[:-4], n_shards, num_patterns + 1, nd,
                         cfg.num_data_bins)
     ph = ph.scatter(-3, tgt[..., None, None].expand(vals.shape), vals)
-    phasors = pmesh.psum(ph[..., :num_patterns, :, :], -4).reshape(
+    phasors = pmesh.psum(ph[..., :num_patterns, :, :], -4, mesh).reshape(
         *ph.shape[:-4], num_patterns * nd, cfg.num_data_bins)
 
     h_data = chan_full[..., sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
@@ -153,12 +170,15 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
                     found, cir)
 
 
-def shard(cfg: OFDMConfig, x: torch.Tensor, n_shards: int) -> torch.Tensor:
+def shard(cfg: OFDMConfig, x: torch.Tensor, n_shards: int,
+          mesh: pmesh.Mesh | None = None) -> torch.Tensor:
     """x [..., n] zero-padded to :func:`padded_len` and cut into
-    [..., n_shards, local] contiguous shards."""
+    [..., n_shards, local] contiguous shards; on a mesh whose "t" spans
+    processes, this process's [..., t_local, local] of them."""
     n = x.shape[-1]
     x = F.pad(x, (0, padded_len(cfg, n, n_shards) - n))
-    return x.reshape(*x.shape[:-1], n_shards, -1)
+    x = x.reshape(*x.shape[:-1], n_shards, -1)
+    return x if mesh is None else pmesh.local_part(mesh, x, -2)
 
 
 def sharded_rx_frame(cfg: OFDMConfig, x: torch.Tensor, mesh: pmesh.Mesh,
@@ -171,10 +191,11 @@ def sharded_rx_frame(cfg: OFDMConfig, x: torch.Tensor, mesh: pmesh.Mesh,
     n = x.shape[-1]
     if num_patterns is None:
         _, num_patterns = plan_rx(cfg, n)
-    x_local = shard(cfg, as_samples(x, mesh.device), mesh.shape[axis])
+    x_local = shard(cfg, as_samples(x, mesh.device), mesh.shape[axis], mesh)
     return _local_rx(cfg, x_local, n_global=n, num_patterns=num_patterns,
                      fast=kernel_default(mesh.device, fast),
-                     demod_path=kernel_default(mesh.device, demod_path))
+                     demod_path=kernel_default(mesh.device, demod_path),
+                     mesh=mesh)
 
 
 def make_sharded_rx(cfg: OFDMConfig, n_samples: int, mesh: pmesh.Mesh,

@@ -24,6 +24,13 @@ chunk's shards lie stacked, [t, l_loc] (``parallel/mesh.py``); per chunk:
 Chunked and sharded == the single-device receiver on the same chunks, and
 == the whole-buffer receiver.  A step keeps static shapes and waits for
 nothing on the host.
+
+On a mesh whose "t" spans processes (``parallel/mesh.py``) every process
+takes the whole chunk and works on its own shards of it; only the lag
+samples of the halo, the gathered peaks and the summed tables cross the
+group, and the carry (history, base, selection state) stays replicated on
+every process.  Over gloo each collective copies to the host, so there a
+step waits for the host; over NCCL it does not.
 """
 
 from __future__ import annotations
@@ -60,13 +67,15 @@ def check_chunk(cfg: OFDMConfig, chunk_len: int, n_shards: int,
     return l_loc
 
 
-def _left_halo(state, chunk: torch.Tensor, n_shards: int, lag: int):
-    """(ext [t, lag + l_loc], the shard numbers, each shard's global start
-    of ext): shard s's chunk behind shard s-1's trailing lag samples, shard
-    0's behind the carried history."""
-    x_local = chunk.reshape(n_shards, -1)
-    i = pmesh.axis_index(n_shards, chunk.device)
-    left = pmesh.ppermute(x_local[:, -lag:], 1, dim=-2)
+def _left_halo(state, chunk: torch.Tensor, n_shards: int, lag: int,
+               mesh: pmesh.Mesh):
+    """(ext [t, lag + l_loc] of this process's t shards, their global
+    numbers, each shard's global start of ext): shard s's chunk behind
+    shard s-1's trailing lag samples, shard 0's behind the carried
+    history."""
+    x_local = pmesh.local_part(mesh, chunk.reshape(n_shards, -1), 0)
+    i = pmesh.axis_index(x_local.shape[0], chunk.device, mesh)
+    left = pmesh.ppermute(x_local[:, -lag:], 1, dim=-2, mesh=mesh)
     left = torch.where((i == 0)[:, None], state.hist, left)
     my_start = state.base + i * x_local.shape[-1] - lag
     return torch.cat([left, x_local], -1), i, my_start
@@ -86,14 +95,15 @@ def _owned(cfg: OFDMConfig, g_det, valid, base, lag: int, t_loc: int, i,
 
 
 def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
-                n_real, *, n_shards: int, det_max: int, fast, demod_path):
+                n_real, *, mesh: pmesh.Mesh, n_shards: int, det_max: int,
+                fast, demod_path):
     lag = reacq_lag(cfg)
     l_loc = check_chunk(cfg, chunk.shape[-1], n_shards, lag)
     stride = max(1, cfg.stride)
     dev = chunk.device
 
     # -- 1. left-halo exchange (shard 0 uses the carried history) ----------
-    ext, i, my_start = _left_halo(state, chunk, n_shards, lag)
+    ext, i, my_start = _left_halo(state, chunk, n_shards, lag, mesh)
 
     # -- 2. local dense search ---------------------------------------------
     t_loc = l_loc // stride
@@ -101,9 +111,9 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     local_ptrs = cfg.cp_len + stride * torch.arange(t_loc, device=dev)
 
     # -- 3. global trial-ordered refractory selection -----------------------
-    vals = pmesh.all_gather(dmax_val, 0)
-    inds = pmesh.all_gather(dmax_ind, 0)
-    gptrs = pmesh.all_gather(my_start[:, None] + local_ptrs, 0)
+    vals = pmesh.all_gather(dmax_val, 0, mesh)
+    inds = pmesh.all_gather(dmax_ind, 0, mesh)
+    gptrs = pmesh.all_gather(my_start[:, None] + local_ptrs, 0, mesh)
     crossing = (vals > sync.gate_level(cfg)) & (gptrs >= cfg.cp_len)
     g_det, (delays, peaks), count, (last_ptr, any_det) = \
         sync.refractory_table(cfg, crossing, (inds, vals), det_max,
@@ -116,9 +126,9 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
                            my_start)
     real_end = state.real_end + n_real
     chans_i, ph_i, ok_i = stream_rx.demod_detections(
-        cfg, ext, ptr_rel, delays.expand(n_shards, -1), mine,
+        cfg, ext, ptr_rel, delays.expand(ext.shape[0], -1), mine,
         real_end - my_start, demod_path=demod_path)
-    phasors = pmesh.psum(ph_i, 0)
+    phasors = pmesh.psum(ph_i, 0, mesh)
 
     new_state = ReacqState(hist=chunk[-lag:].clone(),
                            base=state.base + chunk.shape[-1],
@@ -126,8 +136,9 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
                            any_det=any_det)
     out = ReacqChunkOut(ptrs=torch.where(valid, g_det, -1), delays=delays,
                         peaks=peaks, valid=valid,
-                        demod_ok=pmesh.psum(ok_i.to(torch.int32), 0) > 0,
-                        chans=pmesh.psum(chans_i, 0), phasors=phasors,
+                        demod_ok=pmesh.psum(ok_i.to(torch.int32), 0,
+                                            mesh) > 0,
+                        chans=pmesh.psum(chans_i, 0, mesh), phasors=phasors,
                         hard_bits=stream_rx.hard_decide(cfg, phasors))
     return new_state, out
 
@@ -147,7 +158,7 @@ def make_sharded_reacq_step(cfg: OFDMConfig, chunk_len: int,
     if det_max is None:
         det_max = reacq_det_max(cfg, chunk_len)
     return functools.partial(
-        _reacq_body, cfg, n_shards=n_shards, det_max=det_max,
+        _reacq_body, cfg, mesh=mesh, n_shards=n_shards, det_max=det_max,
         fast=kernel_default(mesh.device, fast),
         demod_path=kernel_default(mesh.device, demod_path)), det_max
 
@@ -175,15 +186,16 @@ class ShardedReacqStreamingRx(ReacqStreamingRx):
 
 
 def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
-                 chunk: torch.Tensor, n_real, *, n_shards: int, det_max: int,
-                 bank: torch.Tensor, dsss: int, demod_path):
+                 chunk: torch.Tensor, n_real, *, mesh: pmesh.Mesh,
+                 n_shards: int, det_max: int, bank: torch.Tensor, dsss: int,
+                 demod_path):
     lag = legacy_lag(cfg)
     l_loc = check_chunk(cfg, chunk.shape[-1], n_shards, lag)
     stride = max(1, cfg.stride)
     dev = chunk.device
 
     # 1. left-halo exchange (shard 0 uses the carried history)
-    ext, i, my_start = _left_halo(state, chunk, n_shards, lag)
+    ext, i, my_start = _left_halo(state, chunk, n_shards, lag, mesh)
 
     # 2. local CFO x delay search, one candidate at a time
     t_loc = l_loc // stride
@@ -192,13 +204,13 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
     local_ptrs = cfg.cp_len + stride * torch.arange(t_loc, device=dev)
 
     # 3. global trial-ordered refractory selection
-    vals = pmesh.all_gather(dmax_val, 0)
-    gptrs = pmesh.all_gather(my_start[:, None] + local_ptrs, 0)
+    vals = pmesh.all_gather(dmax_val, 0, mesh)
+    gptrs = pmesh.all_gather(my_start[:, None] + local_ptrs, 0, mesh)
     crossing = (vals > sync.gate_level(cfg)) & (gptrs >= cfg.cp_len)
     g_det, (delays, fo_sel, peaks), count, (last_ptr, any_det) = \
         sync.refractory_table(
-            cfg, crossing, (pmesh.all_gather(delay_win, 0),
-                            pmesh.all_gather(fo_win, 0), vals), det_max,
+            cfg, crossing, (pmesh.all_gather(delay_win, 0, mesh),
+                            pmesh.all_gather(fo_win, 0, mesh), vals), det_max,
             state.base - lag + cfg.cp_len, state.last_det_ptr, state.any_det)
     valid = torch.arange(det_max, device=dev) < count
 
@@ -206,8 +218,8 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
     mine, ptr_rel = _owned(cfg, g_det, valid, state.base, lag, t_loc, i,
                            my_start)
     real_end = state.real_end + n_real
-    delays_i = delays.expand(n_shards, -1)
-    fo_i = fo_sel.expand(n_shards, -1)
+    delays_i = delays.expand(ext.shape[0], -1)
+    fo_i = fo_sel.expand(ext.shape[0], -1)
     det_spec = cfo_ops.spectra_at_detections(cfg, ext, ptr_rel, fo_i, bank)
     _, chans_i, _ = sync.estimate_channel(cfg, det_spec,
                                           delays_i.to(torch.int64))
@@ -217,7 +229,7 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
     ph_i = legacy_rx.demod_after_detections(
         cfg, ext, torch.where(ok_i, ptr_rel + data_off, 0), ok_i, delays_i,
         fo_i, chans_i, bank, demod_path)
-    phasors = pmesh.psum(ph_i, 0)
+    phasors = pmesh.psum(ph_i, 0, mesh)
 
     new_state = LegacyStreamState(
         hist=chunk[-lag:].clone(), base=state.base + chunk.shape[-1],
@@ -225,8 +237,8 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
     out = LegacyChunkOut(
         ptrs=torch.where(valid, g_det, -1), delays=delays, peaks=peaks,
         fo_idx=fo_sel, valid=valid,
-        demod_ok=pmesh.psum(ok_i.to(torch.int32), 0) > 0,
-        chans=pmesh.psum(chans_i, 0), phasors=phasors,
+        demod_ok=pmesh.psum(ok_i.to(torch.int32), 0, mesh) > 0,
+        chans=pmesh.psum(chans_i, 0, mesh), phasors=phasors,
         despread=cfo_ops.dsss_despread(phasors, dsss))
     return new_state, out
 
@@ -244,7 +256,7 @@ def make_sharded_legacy_step(cfg: OFDMConfig, chunk_len: int,
     if det_max is None:
         det_max = reacq_det_max(cfg, chunk_len)
     return functools.partial(
-        _legacy_body, cfg, n_shards=n_shards, det_max=det_max,
+        _legacy_body, cfg, mesh=mesh, n_shards=n_shards, det_max=det_max,
         bank=cfo_ops.bank_on(cfg, fo_range, mesh.device), dsss=dsss,
         demod_path=kernel_default(mesh.device, demod_path)), det_max
 

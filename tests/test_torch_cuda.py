@@ -18,7 +18,9 @@ key exchanges on the card; the native ring's chunks into a receiver on
 the card.  The sharded runtime (``parallel/``): the sharded RX, the dp x t
 chain and the sharded reacq and legacy chunk steps on the kernels against
 the plain path and the unsharded twins, one K4 and one K2 launch a call or
-step, a step under sync debug mode "error":
+step, a step under sync debug mode "error"; and "t" across 2 processes
+(``tests/test_torch_cards.py``'s workers): both on this card over gloo,
+and one card each over NCCL where 2 cards are visible:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
@@ -1127,3 +1129,61 @@ def test_sharded_stream_kernel_path_equals_plain(dev, kind):
         seq.push(chunks[0])
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"],
+                         ids=["one-card-gloo", "a-card-each-nccl"])
+def test_t_across_processes_on_the_card(dev, tmp_path, backend):
+    """"t" = 4 over 2 processes (2 shards each): the sharded RX, the reacq
+    stream and the CFO case 7 legacy stream (+1500 Hz).  Over gloo both
+    processes drive this card; over NCCL each its own (skipped unless 2
+    cards are visible: NCCL refuses two ranks on one card), with one more
+    chunk step under sync debug mode "error".  Every rank: one K4 (on the
+    rule's route) and one K2 launch a call or step, outputs == the stacked
+    run on this card (integers exact, floats within 2e-4)."""
+    from test_torch_cards import RUNNERS, spawn
+
+    from lte_gnu_radio_code_tpu_torch.parallel import mesh
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("one NCCL process a card needs 2 cards; "
+                    f"{torch.cuda.device_count()} visible")
+    nccl = backend == "nccl"
+    lcfg = config_from_case(CFO_CASES, 7)
+    common = dict(t=4, t_procs=2)
+    jobs = {
+        "rx": dict(kind="rx", cfg=dataclasses.asdict(GOLDEN64),
+                   x=_frames(GOLDEN64, dev, 1, seed=62)[1][0].cpu(), **common),
+        "reacq": dict(kind="reacq", chunk=4800,
+                      cfg=dataclasses.asdict(GOLDEN64), no_sync=nccl,
+                      x=_streams(GOLDEN64, dev, 1, 6 * 4800, 63)[0].cpu(),
+                      **common),
+        "legacy": dict(kind="legacy", chunk=4 * 64 * lcfg.stride,
+                       cfg=dataclasses.asdict(lcfg), no_sync=nccl,
+                       fo_range=(0.0, -1500.0, 1500.0),
+                       dsss=CFO_CASES[7]["dsss"],
+                       x=_legacy_stream(lcfg, dev, 6, 64, 1500.0).cpu(),
+                       **common),
+    }
+    ranks = spawn(jobs, 2, tmp_path, device="cuda:0" if not nccl else "card",
+                  backend=backend)
+    for name, job in jobs.items():
+        ref = RUNNERS[job["kind"]](job, mesh.time_mesh(4))
+        steps = 1 if name == "rx" else ref["valid"].shape[0] + nccl
+        cfg = GOLDEN64 if name != "legacy" else lcfg
+        want = sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride,
+                                 cfg.m_synch)
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            assert got["launches"] == {
+                **dict.fromkeys(kernels.KERNEL_MODULES, 0), "equalize": steps,
+                "sync_search": 0 if name == "legacy" else steps}, (rank, name)
+            if name != "legacy":
+                assert got["routes"][want] == steps, (rank, name)
+            for k, v in ref.items():
+                x, y = got[k], v.cpu()
+                if x.dtype.is_floating_point or x.dtype.is_complex:
+                    torch.testing.assert_close(x, y, atol=2e-4, rtol=0)
+                else:
+                    assert torch.equal(x, y), (rank, name, k)
+        assert bool(ranks[0][name]["found" if name == "rx" else "valid"].any())
