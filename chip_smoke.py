@@ -666,9 +666,8 @@ def profile(step, cell, reps=3, top=12) -> tuple[float, float]:
     prof, seen, made = trace(lambda: [step(i) for i in range(reps)])
     # device kernels only: an operator's row repeats its kernels' time
     rows = sorted(((e.self_device_time_total, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and
-                   e.self_device_time_total > 0), reverse=True)
+                   for e in prof.key_averages() if device_work(e)),
+                  reverse=True)
     total = sum(t for t, _ in rows)
     launches = seen / reps
     print(f"{cell}: profile of {reps} steps, {len(rows)} device kernels in "
@@ -696,6 +695,15 @@ def profile(step, cell, reps=3, top=12) -> tuple[float, float]:
     return total / reps / 1e3, launches
 
 
+def device_work(e) -> bool:
+    """Whether a profiler row is the device's work: a kernel, copy or fill
+    on the CUDA device, not a host span's annotation of the device
+    timeline (the port's stage spans, ``utils/profiling.py:span``)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA and
+            not getattr(e, "is_user_annotation", False) and
+            e.self_device_time_total > 0)
+
+
 def trace(fn):
     """A torch.profiler trace of fn() with the device's events complete:
     (trace, device kernels and copies in it, the host's launch calls in
@@ -711,9 +719,7 @@ def trace(fn):
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        seen = sum(e.count for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA and
-                   e.self_device_time_total > 0)
+        seen = sum(e.count for e in events if device_work(e))
         made = sum(e.count for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU and
                    LAUNCH_CALL.match(e.key))

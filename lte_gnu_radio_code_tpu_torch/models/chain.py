@@ -19,6 +19,7 @@ import torch
 
 from ..kernels import channel_conv
 from ..ops import channel as chan_ops
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.params import OFDMConfig
 from . import rxofdm, txofdm
@@ -92,15 +93,17 @@ def transmit(cfg: OFDMConfig, h: np.ndarray, bits: torch.Tensor, *,
     -> received samples [B, frame_len + nfft - 1].  TX is one K1 launch
     over every symbol of the batch, the channel one K3 launch (any CIR of
     <= 16 taps), AWGN per frame with a per-frame signal power; ``plain``
-    takes TX through torch.fft and the channel through its plain form."""
-    tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
-    if plain or len(h) > channel_conv.MAX_TAPS:
-        clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
-    else:
-        clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
-    sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
-    return chan_ops.awgn(cfg, clean, sig_pow[:, None], generator=generator,
-                         noise=noise)
+    takes TX through torch.fft and the channel through its plain form.
+    Span ``ofdm.tx``."""
+    with profiling.span("ofdm.tx"):
+        tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
+        if plain or len(h) > channel_conv.MAX_TAPS:
+            clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
+        else:
+            clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
+        sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
+        return chan_ops.awgn(cfg, clean, sig_pow[:, None],
+                             generator=generator, noise=noise)
 
 
 def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
@@ -114,13 +117,17 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
     TX and channel through :func:`transmit` (K1 and K3), and RX through
     ``rxofdm.rx_frames_batch`` (K4 and K2), for any modulation and pilot
     grid.  ``plain`` swaps every
-    kernel for its plain twin, with TX through torch.fft."""
-    rxs = transmit(cfg, h, bits, generator=generator, noise=noise,
-                   plain=plain)
-    r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns,
-                               plain=plain)
-    return BatchChainResult(_ber(r.hard_bits, bits), r.found, r.hard_bits,
-                            r.lock_ptr, r.delay_idx, r.phasors)
+    kernel for its plain twin, with TX through torch.fft.  Span
+    ``ofdm.chain_step``, the root of the stages; the BER is in its own
+    time."""
+    with profiling.span("ofdm.chain_step"):
+        rxs = transmit(cfg, h, bits, generator=generator, noise=noise,
+                       plain=plain)
+        r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns,
+                                   plain=plain)
+        return BatchChainResult(_ber(r.hard_bits, bits), r.found,
+                                r.hard_bits, r.lock_ptr, r.delay_idx,
+                                r.phasors)
 
 
 def ber_sweep(cfg: OFDMConfig, snr_dbs, seeds=range(4), device=None

@@ -19,6 +19,7 @@ import torch
 
 from ..kernels import equalize, sync_search
 from ..ops import fast_sync, modulation, pilots, sync
+from ..utils import profiling
 from ..utils.params import OFDMConfig
 
 
@@ -131,26 +132,33 @@ def rx_frames_batch(cfg: OFDMConfig, xs: torch.Tensor, n_trials: int,
     pilot grid: the rotation alone, then the pilot estimate and the MMSE
     gain in torch); the demap is ``rx_frame``'s, per frame.  ``plain`` runs
     the kernels' plain versions instead (what the kernels are held to on
-    the card), the pilot equaliser through ``torch.fft``."""
+    the card), the pilot equaliser through ``torch.fft``.  Spans
+    ``ofdm.search``, ``ofdm.lock``, ``ofdm.demod``, ``ofdm.demap``."""
     search = (sync_search.sync_corr_abs_plain if plain
               else sync_search.sync_corr_abs)
-    corr = search(cfg, xs, n_trials)                     # [B, p, D]
-    ptr, delay_idx, _, found, first = sync.first_lock(cfg, corr)
-    if cfg.pilot_grid != "none":
-        ph, h_data = pilots.equalize_data_symbols_pilot(
-            cfg, xs, ptr, delay_idx, num_patterns, return_chan=True,
-            eq=None if plain else "kernel")
-    else:
-        spec1 = sync.sync_spectrum_at(cfg, xs, first, method="dft")
-        _, chan_full, _ = sync.estimate_channel(cfg, spec1, delay_idx)
-        win = equalize.data_windows(cfg, xs, ptr, num_patterns)  # [B, K, nfft]
-        coeff = equalize.combined_coeff(cfg, delay_idx, chan_full)  # [B, nb]
-        ph = equalize.demod_frames(
-            cfg, win, coeff,
-            equalize.demod_windows_plain if plain else equalize.demod_windows)
-        h_data = chan_full[..., sync._bins_on(xs.device, cfg.nfft,
-                                              cfg.num_data_bins)]
-    ph, hard, _, _ = demap(cfg, ph, h_data)
+    with profiling.span("ofdm.search"):
+        corr = search(cfg, xs, n_trials)                 # [B, p, D]
+    with profiling.span("ofdm.lock"):
+        ptr, delay_idx, _, found, first = sync.first_lock(cfg, corr)
+    with profiling.span("ofdm.demod"):
+        if cfg.pilot_grid != "none":
+            ph, h_data = pilots.equalize_data_symbols_pilot(
+                cfg, xs, ptr, delay_idx, num_patterns, return_chan=True,
+                eq=None if plain else "kernel")
+        else:
+            spec1 = sync.sync_spectrum_at(cfg, xs, first, method="dft")
+            _, chan_full, _ = sync.estimate_channel(cfg, spec1, delay_idx)
+            win = equalize.data_windows(cfg, xs, ptr,
+                                        num_patterns)    # [B, K, nfft]
+            coeff = equalize.combined_coeff(cfg, delay_idx,
+                                            chan_full)   # [B, nb]
+            ph = equalize.demod_frames(
+                cfg, win, coeff, equalize.demod_windows_plain if plain
+                else equalize.demod_windows)
+            h_data = chan_full[..., sync._bins_on(xs.device, cfg.nfft,
+                                                  cfg.num_data_bins)]
+    with profiling.span("ofdm.demap"):
+        ph, hard, _, _ = demap(cfg, ph, h_data)
     return BatchRxResult(hard, found, ptr, delay_idx, ph)
 
 

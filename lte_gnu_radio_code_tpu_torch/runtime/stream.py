@@ -47,6 +47,7 @@ from ..kernels import tracker as tracker_kernel
 from ..models import legacy_rx, stream_rx, tracker
 from ..ops import cfo as cfo_ops
 from ..ops import fast_sync, sync
+from ..utils import profiling
 from ..utils.device import as_samples, kernel_default, resolve_device
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
@@ -270,39 +271,52 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     rule continues across chunks through (last_det_ptr, any_det).  ext is
     one new contiguous tensor a step (K4 reads its rows by 8-byte copies)
     and the new history a copy of its tail, not a view that would keep it
-    alive."""
+    alive.
+
+    Spans ``ofdm.search``, ``ofdm.select``, ``ofdm.demod``,
+    ``ofdm.decide``; counters ``ofdm.detections`` (the table's count) and
+    ``ofdm.slots`` (streams x det_max)."""
     chunk_len = chunk.shape[-1]
     stride = _stride_aligned(cfg, chunk_len)
     lag = reacq_lag(cfg)
     dev = chunk.device
-    ext = torch.cat([state.hist, chunk], -1)
-    ext_start = state.base - lag       # global coordinate of ext[..., 0]
+    with profiling.span("ofdm.search"):
+        ext = torch.cat([state.hist, chunk], -1)
+        ext_start = state.base - lag   # global coordinate of ext[..., 0]
 
-    t_per = chunk_len // stride
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
-    local_ptrs = cfg.cp_len + stride * torch.arange(t_per, device=dev)
-    global_ptrs = ext_start[..., None] + local_ptrs
-    # trials before the stream's head (chunk 0's warm-up region) do not exist
-    crossing = (dmax_val > sync.gate_level(cfg)) & (global_ptrs >= cfg.cp_len)
+        t_per = chunk_len // stride
+        dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
+        local_ptrs = cfg.cp_len + stride * torch.arange(t_per, device=dev)
+        global_ptrs = ext_start[..., None] + local_ptrs
+        # trials before the stream's head (chunk 0's warm-up region) do not
+        # exist
+        crossing = ((dmax_val > sync.gate_level(cfg)) &
+                    (global_ptrs >= cfg.cp_len))
 
-    g_ptrs, (l_ptrs, delays, peaks), count, (last_ptr, any_det) = \
-        sync.refractory_table(
-            cfg, crossing, (local_ptrs, dmax_ind, dmax_val), det_max,
-            ext_start + cfg.cp_len, state.last_det_ptr, state.any_det)
-    valid = torch.arange(det_max, device=dev) < count[..., None]
+    with profiling.span("ofdm.select"):
+        g_ptrs, (l_ptrs, delays, peaks), count, (last_ptr, any_det) = \
+            sync.refractory_table(
+                cfg, crossing, (local_ptrs, dmax_ind, dmax_val), det_max,
+                ext_start + cfg.cp_len, state.last_det_ptr, state.any_det)
+        valid = torch.arange(det_max, device=dev) < count[..., None]
+    profiling.count("ofdm.detections", count)
+    profiling.count("ofdm.slots", det_max * count.numel())
 
-    real_end = state.real_end + n_real
-    chans, phasors, demod_ok = stream_rx.demod_detections(
-        cfg, ext, l_ptrs, delays, valid, real_end - ext_start,
-        demod_path=demod_path)
+    with profiling.span("ofdm.demod"):
+        real_end = state.real_end + n_real
+        chans, phasors, demod_ok = stream_rx.demod_detections(
+            cfg, ext, l_ptrs, delays, valid, real_end - ext_start,
+            demod_path=demod_path)
 
-    new_state = ReacqState(hist=ext[..., -lag:].clone(),
-                           base=state.base + chunk_len, real_end=real_end,
-                           last_det_ptr=last_ptr, any_det=any_det)
-    out = ReacqChunkOut(ptrs=torch.where(valid, g_ptrs, -1), delays=delays,
-                        peaks=peaks, valid=valid, demod_ok=demod_ok,
-                        chans=chans, phasors=phasors,
-                        hard_bits=stream_rx.hard_decide(cfg, phasors))
+    with profiling.span("ofdm.decide"):
+        new_state = ReacqState(hist=ext[..., -lag:].clone(),
+                               base=state.base + chunk_len,
+                               real_end=real_end, last_det_ptr=last_ptr,
+                               any_det=any_det)
+        out = ReacqChunkOut(ptrs=torch.where(valid, g_ptrs, -1),
+                            delays=delays, peaks=peaks, valid=valid,
+                            demod_ok=demod_ok, chans=chans, phasors=phasors,
+                            hard_bits=stream_rx.hard_decide(cfg, phasors))
     return new_state, out
 
 
@@ -400,13 +414,17 @@ class ReacqStreamingRx:
         return self.state.hist.shape[:-1] + (self.chunk_len,)
 
     def push(self, chunk, n_real: int | None = None) -> ReacqChunkOut:
-        chunk = as_samples(chunk, self.device)
-        if chunk.shape != self.chunk_shape:
-            raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
-                             f"{tuple(self.chunk_shape)}")
-        self.state, out = self._step(
-            self.state, chunk, self.chunk_len if n_real is None else n_real)
-        return out
+        """One chunk step; span ``ofdm.chunk_step``, the root of the
+        step's stages."""
+        with profiling.span("ofdm.chunk_step"):
+            chunk = as_samples(chunk, self.device)
+            if chunk.shape != self.chunk_shape:
+                raise ValueError(f"push: chunk {tuple(chunk.shape)}, "
+                                 f"expected {tuple(self.chunk_shape)}")
+            self.state, out = self._step(
+                self.state, chunk,
+                self.chunk_len if n_real is None else n_real)
+            return out
 
     def push_many(self, chunks) -> ReacqChunkOut:
         """K chunk steps in one call; see :func:`_push_many`."""

@@ -1,23 +1,69 @@
-"""Profiling and tracing helpers.
+"""Tracing of the port's steps: stage spans and counters that cost a flag
+read unless a ``torch.profiler`` session records.
 
-Port of ``lte_gnu_radio_code_tpu/utils/profiling.py``:
+- span: a named stage of a step.  While a profiler session records it is
+  ``torch.profiler.record_function(name)``, a host annotation in the same
+  trace as the kernels, so every idle gap of the device trace lies inside
+  a named stage; otherwise one shared no-op context.  It adds no host
+  sync, no device operation and no device allocation.
+- count: a value a step has already computed (a host int, or a device
+  tensor, never a reduction made for the counter), kept while a profiler
+  session records; counters() sums them, reading device values only then.
+- trace: a ``torch.profiler`` trace of the block (CPU, and CUDA where
+  present), written as a Chrome trace file into ``logdir`` (TensorBoard's
+  profiler plugin reads it), the block's counters beside it.
 
-- simple_timeit: steady-state wall-clock of a callable, each call ended by
-  a ``torch.cuda.synchronize`` where the JAX helper blocks on the result;
-- trace: a ``torch.profiler`` trace of the block, written as a Chrome
-  trace file into ``logdir`` (TensorBoard's profiler plugin reads it);
-- stage_report: a per-stage timing table for a pipeline of callables.
+The gate is torch's own flag, which a profiler session sets while it
+records: tracing is on exactly then, with no setting of its own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import pathlib
 import socket
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+_counters: dict[str, list] = {}
+
+
+def span(name: str):
+    """The stage ``name`` as a context manager: a profiler annotation while
+    a session records, else a shared no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, value) -> None:
+    """Keep ``value`` (a host int or a device tensor the step has already
+    computed) under ``name`` while a profiler session records."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counters.setdefault(name, []).append(value)
+
+
+def counters() -> dict[str, tuple[int, int]]:
+    """{name: (total of every element of every value kept, values kept)};
+    device values are read here, once a counter."""
+    out = {}
+    for name, values in _counters.items():
+        total = sum(v for v in values if not torch.is_tensor(v))
+        held = [v.reshape(-1).to(torch.int64) for v in values
+                if torch.is_tensor(v)]
+        if held:
+            total += int(torch.cat([t.cpu() for t in held]).sum())
+        out[name] = (int(total), len(values))
+    return out
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 def _wait() -> None:
@@ -26,43 +72,26 @@ def _wait() -> None:
         torch.cuda.synchronize()
 
 
-def simple_timeit(fn, *args, min_seconds: float = 2.0, warmup: int = 3):
-    """Returns (seconds_per_call, iters).  No host transfers in the loop."""
-    for _ in range(warmup):
-        fn(*args)
-        _wait()
-    iters, t0 = 0, time.perf_counter()
-    while time.perf_counter() - t0 < min_seconds or iters < 3:
-        fn(*args)
-        _wait()
-        iters += 1
-    return (time.perf_counter() - t0) / iters, iters
-
-
 @contextlib.contextmanager
 def trace(logdir):
     """A torch.profiler trace of the block (CPU, and CUDA where present),
-    written to ``logdir``/<host>.<pid>.<time ns>.pt.trace.json."""
+    written to ``logdir``/<host>.<pid>.<time ns>.pt.trace.json, and the
+    block's counters to <host>.<pid>.<time ns>.counters.json beside it
+    ({name: {"total": ..., "records": ...}})."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     path = pathlib.Path(logdir)
     path.mkdir(parents=True, exist_ok=True)
+    reset_counters()
     with torch.profiler.profile(activities=acts) as prof:
         try:
             yield prof
         finally:
             _wait()
-    prof.export_chrome_trace(str(path / (
-        f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}"
-        ".pt.trace.json")))
-
-
-def stage_report(stages: dict, *, min_seconds: float = 1.0) -> dict:
-    """{name: (fn, args)} -> {name: seconds_per_call}; prints a table."""
-    out = {}
-    for name, (fn, args) in stages.items():
-        dt, _ = simple_timeit(fn, *args, min_seconds=min_seconds)
-        out[name] = dt
-        print(f"{name:30s} {dt * 1e3:9.3f} ms")
-    return out
+    stem = path / f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}"
+    prof.export_chrome_trace(f"{stem}.pt.trace.json")
+    with open(f"{stem}.counters.json", "w") as f:
+        json.dump({name: {"total": total, "records": records}
+                   for name, (total, records) in counters().items()}, f,
+                  indent=1)

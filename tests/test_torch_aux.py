@@ -1,4 +1,4 @@
-"""The PyTorch port's profiling helpers, its numpy oracle and the BER
+"""The PyTorch port's trace helper, its numpy oracle and the BER
 sweep's ``--check-oracle``, and the four-step TX, on the CPU against the
 JAX package on numpy inputs made from a seed.
 
@@ -24,21 +24,6 @@ from lte_gnu_radio_code_tpu_torch.ops import ofdm
 from lte_gnu_radio_code_tpu_torch.reference_cpu import golden
 from lte_gnu_radio_code_tpu_torch.utils import profiling
 from torch_parity import port_cfg, reduced
-
-
-def test_simple_timeit_and_stage_report(capsys):
-    calls = []
-    dt, iters = profiling.simple_timeit(lambda a: calls.append(a), 7,
-                                        min_seconds=0.01, warmup=2)
-    assert iters >= 3 and len(calls) == iters + 2 and set(calls) == {7}
-    assert dt > 0
-    out = profiling.stage_report(
-        {"fft": (torch.fft.fft, (torch.ones(64, dtype=torch.complex64),)),
-         "sum": (torch.sum, (torch.ones(8),))}, min_seconds=0.01)
-    assert set(out) == {"fft", "sum"} and all(v > 0 for v in out.values())
-    printed = capsys.readouterr().out.splitlines()
-    assert [line.split()[0] for line in printed] == ["fft", "sum"]
-    assert all(line.endswith(" ms") for line in printed)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -20,11 +20,14 @@ chain and the sharded reacq and legacy chunk steps on the kernels against
 the plain path and the unsharded twins, one K4 and one K2 launch a call or
 step, a step under sync debug mode "error"; and "t" across 2 processes
 (``tests/test_torch_cards.py``'s workers): both on this card over gloo,
-and one card each over NCCL where 2 cards are visible:
+and one card each over NCCL where 2 cards are visible.  The stage spans
+of ``chain_batch`` and the reacq chunk step (``utils/profiling.py``) add
+no device operation and wait for no host:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -40,6 +43,7 @@ from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, mimo,
                                                  txofdm)
 from lte_gnu_radio_code_tpu_torch.ops import channel, pilots, sync
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+from lte_gnu_radio_code_tpu_torch.utils import profiling
 from lte_gnu_radio_code_tpu_torch.utils.params import (CFO_CASES, DSSS_CASES,
                                                        GOLDEN64, LTE1024,
                                                        LTE2048, SDR_PROFILES,
@@ -415,6 +419,77 @@ def test_serving_kernel_path_equals_plain_path(dev, cfg, chunk):
         assert torch.equal(getattr(one, name), getattr(many, name)[:, 1])
     torch.testing.assert_close(one.phasors, many.phasors[:, 1], atol=2e-5,
                                rtol=0)
+
+
+def _device_ops(fn, root) -> int:
+    """Device kernels, copies and fills of one fn() in a torch.profiler
+    trace, fn() run under sync debug mode "error"; the trace is taken
+    again where it lost device events (fewer than the host's launch
+    calls), up to four times.  Asserts that the trace holds ``root`` on
+    the host exactly where the stage spans are on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    launch = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        events = prof.events()
+        seen = sum(e.device_type == DeviceType.CUDA and
+                   not getattr(e, "is_user_annotation", False)
+                   for e in events)
+        made = sum(e.device_type == DeviceType.CPU and
+                   e.name.startswith(launch) for e in events)
+        if seen >= made:
+            break
+    spans = profiling.span is not _no_span
+    assert any(e.name == root for e in events) == spans
+    return seen
+
+
+def _no_span(name):
+    return contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("step", ["chain", "stream"])
+def test_stage_spans_add_no_device_op_and_no_host_sync(dev, step,
+                                                       monkeypatch):
+    """The two benchmarked steps (``chain_batch``; a
+    ``BatchReacqStreamingRx`` chunk step) under the profiler and sync debug
+    mode "error": nothing waits for the host, and the device operations
+    with the stage spans are as many as with ``profiling.span`` a no-op."""
+    if step == "chain":
+        cfg = G24
+        n = cfg.frame_len + cfg.nfft - 1
+        n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+        bits, _ = _frames(cfg, dev, 4, seed=7)
+        noise = _cplx(dev, 8, 4, n)
+        h = chain.loopback_taps(cfg)
+        root = "ofdm.chain_step"
+
+        def fn():
+            chain.chain_batch(cfg, h, n_trials, num_patterns, bits,
+                              noise=noise)
+    else:
+        chunk, batch = 4800, 3
+        chunks = _streams(GOLDEN64, dev, batch, 8 * chunk, seed=22).reshape(
+            batch, 8, chunk).transpose(0, 1).contiguous()
+        rx = rt.BatchReacqStreamingRx(GOLDEN64, chunk, batch)
+        pushed = iter(chunks)
+        root = "ofdm.chunk_step"
+
+        def fn():
+            rx.push(next(pushed))
+    fn()                                       # the first call builds
+    torch.cuda.synchronize()
+    with_spans = _device_ops(fn, root)
+    monkeypatch.setattr(profiling, "span", _no_span)
+    assert with_spans == _device_ops(fn, root) > 0
 
 
 def test_single_lock_stream_on_the_card(dev):
