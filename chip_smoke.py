@@ -121,6 +121,15 @@ process's stacked run of the same mesh shape on the same buffers, one K4
 and one K2 launch a call or step; ms beside the stacked twin's and the
 bytes a rank hands the group; rank 0's K4 and K2 rows at its shapes.
 
+K4's rows, wherever the script holds K4 (``sync_checks``), are its peaks
+form, the form every main path takes (each trial's peak and delay,
+reduced inside the kernel): equal to the same kernel's surface reduced by
+max(-1), values and delays bit for bit, on both routes; timed beside the
+surface form alone and with that reduction, against its bound.
+``k4_link_run``: that check at GOLDEN64 b512, the g64-link cell's shape.
+``chain_run``, ``serving_run`` and ``mimo_run`` also gate every K4 launch
+of their main path to the peaks form.
+
 Run from the repository root:  python3 chip_smoke.py
 (``--tracker-block``: the block route's LTE1024 and LTE2048 paths alone;
 a copy of the script in a parent commit's tree times that tree's kernel.
@@ -152,6 +161,8 @@ CHAIN_REPS = 20
 CHAIN_ROUNDS = 3              # the chain is timed this often; median kept
 TIMING_REPS = 20
 CELLS = (("GOLDEN64", 128), ("LTE1024", 32), ("LTE2048", 32))
+# K4 alone at the g64-link cell's shape: config and frames
+K4_LINK = ("GOLDEN64", 512)
 # serving shapes: config, streams, chunk length (256 strides at the LTE
 # sizes), chunks a push_many
 SERVING = (("LTE1024", 16, 65280, 16), ("GOLDEN64", 16, 65520, 4),
@@ -328,8 +339,12 @@ def compare(name, kernel_fn, plain_fn, inputs, ops, library_fn, atol,
     """Kernel vs plain twin on the same inputs, then timed in turns
     (plain, kernel, kernel, plain) from a cold L2, then the library call;
     bytes = the inputs read once and the output written once, ops = the
-    float32 operations the function needs on these inputs."""
+    float32 operations the function needs on these inputs.  Where both
+    return a tuple (K4's peaks form: peak, delay), the first output is
+    compared and every output counts in the bytes."""
     k, p = kernel_fn(), plain_fn()
+    outs = k if isinstance(k, tuple) else (k,)
+    k, p = outs[0], (p[0] if isinstance(p, tuple) else p)
     torch.cuda.synchronize()
     if k.shape != p.shape or not bool(torch.isfinite(k).all()):
         raise AssertionError(f"{name}: kernel output {tuple(k.shape)} "
@@ -342,7 +357,7 @@ def compare(name, kernel_fn, plain_fn, inputs, ops, library_fn, atol,
     t = [event_ms(f, TIMING_REPS)
          for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
     ms = (t[1] + t[2]) / 2
-    nbytes = sum(x.nbytes for x in inputs) + k.nbytes
+    nbytes = sum(x.nbytes for x in inputs) + sum(o.nbytes for o in outs)
     bound_ms, bound_by = bound(nbytes, ops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": (t[0] + t[3]) / 2,
             "library_ms": event_ms(library_fn, TIMING_REPS),
@@ -361,18 +376,48 @@ def fft_flops(rows: int, nfft: int) -> float:
     return rows * 5.0 * nfft * np.log2(nfft)
 
 
-def sync_checks(cfg, batch, rxs, n_trials, cell, zc=None) -> dict:
-    """K4 at one main-path shape: the route the rule gives it, the kernel
-    against the conv-bank twin (timed, with the twin's conv1d alone as the
-    library call), against the FFT-form plain version, and all three
-    against a float64 evaluation of the FFT form; bytes, operations and
-    bound of the function (the operations of its cheapest known form,
-    whichever kernel ran), the product form's bound beside it, and the
-    other route's kernel timed on the same input.  ``zc``: the ZC sequence
-    searched for (None: the config's own; the MIMO search gives a slice of
-    a longer one)."""
-    import torch.nn.functional as F
+def k4_least_ops(cfg) -> int:
+    """K4's float32 operations a trial in its cheapest known form: the FFT
+    form wherever it applies, whichever kernel the rule picks."""
     from lte_gnu_radio_code_tpu_torch.kernels import fft, sync_search
+
+    ops = sync_search.direct_ops(cfg.nfft, cfg.cp_len, cfg.m_synch)
+    if fft.takes_fft(cfg.nfft) and cfg.cp_len + 1 <= cfg.nfft:
+        ops = min(ops, sync_search.fft_ops(cfg.nfft, cfg.m_synch))
+    return ops
+
+
+def same_peaks(cell, what, peaks, surface) -> None:
+    """K4's peaks form (peak, delay) == the same kernel's surface reduced by
+    max(-1), peak and delay bit for bit."""
+    peak, delay = peaks
+    want, at = surface.max(-1)
+    same_peak = torch.equal(peak.view(torch.int32), want.view(torch.int32))
+    same_delay = torch.equal(delay, at.to(torch.int32))
+    if not (same_peak and same_delay):
+        raise AssertionError(
+            f"{cell}: the {what}'s peaks form vs its surface max(-1): peaks "
+            f"equal {same_peak} (max |diff| "
+            f"{float((peak - want).abs().max())}), delays equal {same_delay}"
+            f" ({int((delay != at).sum())} differ)")
+
+
+def sync_checks(cfg, batch, rxs, n_trials, cell, zc=None) -> dict:
+    """K4 at one main-path shape, in both output forms: the route the rule
+    gives it, one launch a call in each form.  The peaks form, the one
+    every main path runs, is the row: held to the surface form's max(-1)
+    bit for bit (the rule's kernel and the other route's), to the conv-bank
+    twin's peaks (timed, with the twin's conv1d alone as the library call),
+    with the surface form's ms, and the surface form followed by its
+    max(-1), beside it.  The surface form against the twin, the FFT-form
+    plain version and the other route's kernel, and all of them against a
+    float64 evaluation of the FFT form; bytes, operations and bound of the
+    peaks form (the operations of its cheapest known form, whichever kernel
+    ran), the product form's bound beside it, and the other route's kernel
+    timed on the same input.  ``zc``: the ZC sequence searched for (None:
+    the config's own; the MIMO search gives a slice of a longer one)."""
+    import torch.nn.functional as F
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.ops import fast_sync
     from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
 
@@ -381,43 +426,59 @@ def sync_checks(cfg, batch, rxs, n_trials, cell, zc=None) -> dict:
     if kind != want:
         raise AssertionError(f"{cell}: sync_search route {kind!r}, expected "
                              f"{want!r} at stride {cfg.stride}")
-    before = dict(sync_search.route_launches)
-    k = sync_search.sync_corr_abs(cfg, rxs, n_trials, zc)
     other = "fft" if kind == "direct" else "direct"
-    if (sync_search.route_launches[kind] != before[kind] + 1 or
-            sync_search.route_launches[other] != before[other]):
-        raise AssertionError(f"{cell}: the wrapper did not launch the "
-                             f"{kind} kernel once: {before} -> "
-                             f"{sync_search.route_launches}")
+    outs = {}
+    for form, fn in (("surface", sync_search.sync_corr_abs),
+                     ("peaks", sync_search.sync_peaks)):
+        before = (dict(sync_search.route_launches),
+                  dict(sync_search.peak_launches))
+        outs[form] = fn(cfg, rxs, n_trials, zc)
+        after = (sync_search.route_launches, sync_search.peak_launches)
+        grew = [{r: a[r] - b[r] for r in a} for a, b in zip(after, before)]
+        if grew != [{kind: 1, other: 0},
+                    {kind: int(form == "peaks"), other: 0}]:
+            raise AssertionError(f"{cell}: the wrapper did not launch the "
+                                 f"{kind} kernel once in the {form} form: "
+                                 f"{before} -> {after}")
+    k = outs["surface"]
+    same_peaks(cell, f"{kind} kernel", outs["peaks"], k)
 
     tol = (dict(atol=2e-3) if cfg.stride == 1
            else dict(atol=3e-3, rtol=2e-4))
-    # the function needs no more operations than its cheapest form: the
-    # FFT form wherever it applies, whichever kernel the rule picks
     direct_ops = sync_search.direct_ops(cfg.nfft, cfg.cp_len, cfg.m_synch)
-    least_ops = direct_ops
-    if fft.takes_fft(cfg.nfft) and cfg.cp_len + 1 <= cfg.nfft:
-        least_ops = min(direct_ops,
-                        sync_search.fft_ops(cfg.nfft, cfg.m_synch))
+    least_ops = k4_least_ops(cfg)
     w = device_table(fast_sync._conv_weights, rxs.device, cfg,
                      fast_sync.zc_key(zc))
     xr = planar(rxs[:, cfg.cp_len:])
+
+    def surface():
+        return sync_search.sync_corr_abs(cfg, rxs, n_trials, zc)
+
     r = compare(
         "sync_search",
-        lambda: sync_search.sync_corr_abs(cfg, rxs, n_trials, zc),
-        lambda: sync_search.sync_corr_abs_plain(cfg, rxs, n_trials, zc),
+        lambda: sync_search.sync_peaks(cfg, rxs, n_trials, zc),
+        lambda: sync_search.sync_peaks_plain(cfg, rxs, n_trials, zc),
         (rxs,),
         ops=float(batch * n_trials * least_ops),
         library_fn=lambda: F.conv1d(xr, w, stride=cfg.stride), **tol)
     r["kernel_route"] = kind
+    r["surface_ms"] = event_ms(surface, TIMING_REPS)
+    r["surface_max_ms"] = event_ms(lambda: surface().max(-1), TIMING_REPS)
     direct_bound_ms = bound(r["bytes"],
                             float(batch * n_trials * direct_ops))[0]
     r["other_route_ms"] = event_ms(
-        lambda: sync_search._launch(other, cfg, rxs, n_trials, zc),
-        TIMING_REPS)
+        lambda: sync_search._launch(other, cfg, rxs, n_trials, zc,
+                                    form="peaks"), TIMING_REPS)
     ko = sync_search._launch(other, cfg, rxs, n_trials, zc)
+    same_peaks(cell, f"{other} kernel",
+               sync_search._launch(other, cfg, rxs, n_trials, zc,
+                                   form="peaks"), ko)
 
     twin = sync_search.sync_corr_abs_plain(cfg, rxs, n_trials, zc)
+    if not torch.allclose(k, twin, **tol):
+        raise AssertionError(f"{cell}: sync_search {kind} kernel's surface "
+                             f"vs the conv-bank twin: max |diff| "
+                             f"{float((k - twin).abs().max())} beyond {tol}")
     fplain = sync_search.sync_corr_abs_fft_plain(cfg, rxs, n_trials, zc)
     for what, v in (("FFT-form plain version", fplain),
                     (f"{other} kernel", ko)):
@@ -435,13 +496,17 @@ def sync_checks(cfg, batch, rxs, n_trials, cell, zc=None) -> dict:
                             float((v[i:i + 8].double() - ref).abs().max()))
     r["err_vs_float64"] = errs
     r["err_vs_fft_plain"] = float((k - fplain).abs().max())
-    print(f"{cell}: sync_search route {kind}: {r['ops']:.4g} operations in "
+    print(f"{cell}: sync_search route {kind}, peaks form {r['ms']:.4f} ms "
+          f"(== surface max(-1) bit for bit, both routes; surface form "
+          f"{r['surface_ms']:.4f} ms, with its max(-1) "
+          f"{r['surface_max_ms']:.4f} ms): {r['ops']:.4g} operations in "
           f"the cheapest form, {r['bytes']} bytes, bound "
           f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
           f"({r['bound_share']:.3f} of it reached; the product form's bound "
           f"{direct_bound_ms:.4f} ms, {direct_bound_ms / r['ms']:.3f}); "
-          f"{other} kernel on the same input {r['other_route_ms']:.4f} ms; "
-          f"max |err| vs float64: {kind} kernel {errs['kernel']:.3e}, "
+          f"{other} kernel's peaks form on the same input "
+          f"{r['other_route_ms']:.4f} ms; surface max |err| vs float64: "
+          f"{kind} kernel {errs['kernel']:.3e}, "
           f"{other} kernel {errs['other']:.3e}, conv-bank twin "
           f"{errs['twin']:.3e}, FFT-form plain {errs['fft_plain']:.3e}; "
           f"kernel vs FFT-form plain {r['err_vs_fft_plain']:.3e}")
@@ -491,6 +556,24 @@ def route_cross_checks(dev) -> None:
               f"{n_trials} trials: max |kernel - twin| {err:.3e}")
 
 
+def k4_link_run(dev, gpu) -> list:
+    """:func:`sync_checks` at K4_LINK, on link frames made on the card (a
+    frame and the head of the next, :func:`make_streams`); one ``kernels``
+    entry, one launch a step."""
+    from lte_gnu_radio_code_tpu_torch.models import rxofdm
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    cfg_name, batch = K4_LINK
+    cfg = getattr(params, cfg_name)
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, _ = rxofdm.plan_rx(cfg, n)
+    x, _ = make_streams(cfg, batch, n, dev)
+    cell = f"{cfg_name} b{batch}"
+    c = sync_checks(cfg, batch, x, n_trials, f"{cell} on {gpu}")
+    print_kernel_rows(cell, {"sync_search": c})
+    return [kernel_entry("sync_search", cell, 1, c)]
+
+
 def kernel_checks(cfg, batch, dev, cell) -> dict:
     """Each kernel against its twin on real main-path inputs of one cell
     (any modulation and pilot grid)."""
@@ -535,8 +618,8 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
 
     out["sync_search"] = sync_checks(cfg, batch, rxs, n_trials, cell)
 
-    corr = sync_search.sync_corr_abs(cfg, rxs, n_trials)
-    ptr, delay, _, _, first = sync.first_lock(cfg, corr)
+    ptr, delay, _, _, first = sync.lock_from_peaks(
+        cfg, *sync_search.sync_peaks(cfg, rxs, n_trials))
     win = equalize.data_windows(cfg, rxs, ptr, num_patterns)
     if cfg.pilot_grid == "none":
         spec = sync.sync_spectrum_at(cfg, rxs, first, method="dft")
@@ -623,9 +706,12 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
                              "steps, expected one of each kernel a step")
     routes = dict(sync_search.route_launches)           # of the last round
     want = "direct" if cfg.stride == 1 else "fft"
-    if routes != {"fft": 0, "direct": 0, want: counts["sync_search"]}:
+    if (routes != {"fft": 0, "direct": 0, want: counts["sync_search"]} or
+            sync_search.peak_launches != routes):
         raise AssertionError(f"{cell}: sync_search launches by route "
-                             f"{routes}, expected all on {want!r}")
+                             f"{routes}, in the peaks form "
+                             f"{sync_search.peak_launches}, expected all on "
+                             f"{want!r} in the peaks form")
 
     nr = torch.randn(batch, n_samples, generator=gen, device=dev)
     ni = torch.randn(batch, n_samples, generator=gen, device=dev)
@@ -1009,10 +1095,12 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     routes = dict(sync_search.route_launches)
     steps = outs.valid.shape[0]
     if (counts["sync_search"] != steps or counts["equalize"] != steps or
-            routes != {"fft": 0, "direct": 0, want: steps}):
+            routes != {"fft": 0, "direct": 0, want: steps} or
+            sync_search.peak_launches != routes):
         raise AssertionError(f"{cell}: {steps} chunk steps, launches "
-                             f"{counts}, sync_search by route {routes} "
-                             f"(expected all on {want!r})")
+                             f"{counts}, sync_search by route {routes}, in "
+                             f"the peaks form {sync_search.peak_launches} "
+                             f"(expected all on {want!r} in the peaks form)")
     if rx.det_max != rt.reacq_det_max(cfg, chunk_len) or \
             outs.phasors.shape != (steps, batch, rx.det_max,
                                    cfg.synch_dat[1], cfg.num_data_bins) or \
@@ -2276,10 +2364,13 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
         locks = torch.stack([r.lock_ptr for r in results]).unique().tolist()
         if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
                        "sync_search": CHAIN_REPS} or
-                routes != {"fft": 0, "direct": CHAIN_REPS}):
+                routes != {"fft": 0, "direct": CHAIN_REPS} or
+                sync_search.peak_launches != routes):
             raise AssertionError(f"{cell}: launches {counts}, sync_search by "
-                                 f"route {routes} over {CHAIN_REPS} steps, "
-                                 "expected one direct K4 launch a step")
+                                 f"route {routes}, in the peaks form "
+                                 f"{sync_search.peak_launches} over "
+                                 f"{CHAIN_REPS} steps, expected one direct "
+                                 "K4 launch a step in the peaks form")
         if not bool(found.all()) or float(ber.max()) != 0.0:
             raise AssertionError(f"{cell}: {int((~found).sum())} frames "
                                  f"unlocked, worst BER {float(ber.max())}")
@@ -2884,12 +2975,16 @@ def kernel_inputs():
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
 
     seen = {"sync_search": [], "equalize": [], "tracker": []}
-    k4, k2, scan = (sync_search.sync_corr_abs, equalize.demod_windows,
-                    ktrk.track_scan)
+    k4, k4p, k2, scan = (sync_search.sync_corr_abs, sync_search.sync_peaks,
+                         equalize.demod_windows, ktrk.track_scan)
 
     def search(cfg, x, n_trials, zc=None):
         seen["sync_search"].append((x, n_trials))
         return k4(cfg, x, n_trials, zc)
+
+    def peaks(cfg, x, n_trials, zc=None):
+        seen["sync_search"].append((x, n_trials))
+        return k4p(cfg, x, n_trials, zc)
 
     def demod(cfg, win, coeff):
         seen["equalize"].append((win, coeff))
@@ -2900,12 +2995,12 @@ def kernel_inputs():
         return scan(cfg, *args)
 
     sync_search.sync_corr_abs, equalize.demod_windows = search, demod
-    ktrk.track_scan = track
+    sync_search.sync_peaks, ktrk.track_scan = peaks, track
     try:
         yield seen
     finally:
         sync_search.sync_corr_abs, equalize.demod_windows = k4, k2
-        ktrk.track_scan = scan
+        sync_search.sync_peaks, ktrk.track_scan = k4p, scan
 
 
 def path_checks(cfg, seen, cell, step=0) -> dict:
@@ -3759,7 +3854,8 @@ def kernel_entry(name, cell, launches, c) -> dict:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             **{k: c[k] for k in ("kernel_route", "other_route_ms",
-                                 "err_vs_float64", "err_vs_fft_plain")
+                                 "err_vs_float64", "err_vs_fft_plain",
+                                 "surface_ms", "surface_max_ms")
                if k in c}}
 
 
@@ -3812,6 +3908,7 @@ def main() -> int:
         print(f"{cell}: {run['msps']:.3f} Msamples/s on {gpu}")
         for name, c in checks.items():
             entries.append(kernel_entry(name, cell, run["launches"][name], c))
+    entries += k4_link_run(dev, gpu)
     for cfg_name, batch, chunk_len, k in SERVING:
         cfg = getattr(params, cfg_name)
         cell = f"{cfg_name} serving b{batch}"

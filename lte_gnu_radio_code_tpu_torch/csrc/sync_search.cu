@@ -49,43 +49,115 @@
 // FFMA, where the first version of this kernel read 5 words for 16.  More
 // trials a thread (2, 4) read fewer words per FFMA but ran slower: fewer
 // warps were left to hide the reads' latency (PERF.md, K4).  D = 17 is
-// one tile exactly (larger D take ceil(D / 17) tiles in blockIdx.y, at most
-// 6 % of lanes idle from D = 33 on).  A block takes 256 trials of one frame:
-// their span of x goes to shared memory once, K in stages of 64 taps (all
-// of K in one stage at GOLDEN64).  The window sums that the power needs
-// (energy, and the even and odd samples' sums, which give DC and Nyquist)
-// are taken from the same x registers in the same pass, with the Parseval
-// form power = sum_l (nfft E_l - |DC_l|^2 - |NY_l|^2), valid for the
-// canonical all-but-DC-and-Nyquist synch bins (the wrapper checks).
+// one tile exactly (larger D take ceil(D / 17) tiles, in blockIdx.y in the
+// surface form, at most 6 % of lanes idle from D = 33 on).  A block takes
+// 256 trials of one frame: their span of x goes to shared memory once, K in
+// stages of 64 taps (all of K in one stage at GOLDEN64).  The window sums
+// that the power needs (energy, and the even and odd samples' sums, which
+// give DC and Nyquist) are taken from the same x registers in the same
+// pass, with the Parseval form power = sum_l (nfft E_l - |DC_l|^2 -
+// |NY_l|^2), valid for the canonical all-but-DC-and-Nyquist synch bins (the
+// wrapper checks).
 // Results go through shared memory so that the stores are coalesced.
 // Where the span of 256 trials would not fit in shared memory (a large
 // stride), the block takes the trials that fit.
+//
+// Two output forms, a compile-time switch of both kernels (kPeaks).  The
+// surface form writes out[b, p, d] as above.  The peaks form writes only
+// what a caller whose next step is the per-trial reduction over the delays
+// reads: peak[b, p] = max_d out[b, p, d] and delay[b, p] its first argmax
+// (ties to the lowest delay, NaN above every number: torch's max(-1) and
+// jnp.argmax).  Each value is the surface form's expression in the same
+// order, so both are out.max(-1) bit for bit; the [B, trials, D] surface
+// (665 MB at GOLDEN64 B 512) never reaches HBM.  Direct route: a thread
+// holds its trial's D delays in registers and reduces them there, and a
+// block walks every delay tile itself (one launch, no atomics) where D >
+// 17; consecutive lanes hold consecutive trials, so the stores coalesce
+// without the shared-memory staging.  D <= 17 has a kernel of its own
+// (kOneTile): without the running max across tiles it needs no spills
+// (ptxas, 80 registers), where the tile loop run at D = 17 spilled 56 bytes
+// of stores (40 bytes of stack); the tile-loop kernel, taken only where
+// D > 17, spills 184 bytes of stores (40 bytes of stack).  FFT route:
+// each thread reduces its strided delays of y, then the row reduces the
+// (value, index) pairs.
 //
 // Float32 throughout, no TF32, no fast-math; the twiddles are the float64-
 // built table of kernels/fft.py.
 
 #include <atomic>
+#include <climits>
+#include <cmath>
 
 #include "common.cuh"
 #include "fft.cuh"
 
 namespace {
 
+// |v| * scale: one delay's value, the same expression in both forms.
+__device__ __forceinline__ float scaled_abs(float2 v, float scale) {
+  return sqrtf(v.x * v.x + v.y * v.y) * scale;
+}
+
+// Whether (a, ia) comes before (b, ib) in the order max(-1) keeps: the
+// larger value, NaN above every number, the lower index between equals.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  const bool na = a != a, nb = b != b;
+  if (na || nb) return na && (!nb || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// (v, i) <- the pair that beats every other of the T threads of the row.
+// Rows of T > 32 threads are whole warps; their winners meet in redv, redi
+// (kThreads / 32 entries each of shared memory).
+template <int T>
+__device__ __forceinline__ void row_argmax(float& v, int& i, float* redv,
+                                           int* redi) {
+  constexpr int W = T < 32 ? T : 32;
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (beats(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  if constexpr (T > 32) {
+    constexpr int RW = T / 32;                      // warps of the row
+    const int warp = threadIdx.x / 32, first = warp / RW * RW;
+    if (threadIdx.x % 32 == 0) {
+      redv[warp] = v;
+      redi[warp] = i;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < RW; ++w) {
+      if (beats(redv[first + w], redi[first + w], v, i)) {
+        v = redv[first + w];
+        i = redi[first + w];
+      }
+    }
+    __syncthreads();   // redv, redi free again
+  }
+}
+
 // ---------------------------------------------------------------- FFT route
 
 // zc: [m0, N] conj(ZC) by FFT bin, zero off the synch bins.  kBufs: 2, or 3
-// where m0 > 1 (the sum over windows then has its own buffer).
-template <int N, int kBufs>
+// where m0 > 1 (the sum over windows then has its own buffer).  kPeaks: out
+// is peak [rows] and delay [rows] is written too, else out is [rows, cp+1].
+template <int N, int kBufs, bool kPeaks>
 __global__ void __launch_bounds__(lte::kThreads)
 sync_search_fft_kernel(const float2* __restrict__ x, int n,
                        const float2* __restrict__ zc,
                        const float2* __restrict__ tw, float* __restrict__ out,
-                       int rows, int n_trials, int cp, int stride, int m0,
-                       int rxb, float big_l) {
+                       int* __restrict__ delay, int rows, int n_trials, int cp,
+                       int stride, int m0, int rxb, float big_l) {
   using Rows = lte::fft::Rows<N>;
   constexpr int T = Rows::T, R = Rows::R;
   extern __shared__ float4 smem[];
   __shared__ float red[lte::kThreads / 32];
+  __shared__ int redi[lte::kThreads / 32];
   const int t = threadIdx.x % T, slot = threadIdx.x / T;
   float2* c = reinterpret_cast<float2*>(smem) + slot * kBufs * N;  // staging
   float2* w = c + N;                                               // work
@@ -132,12 +204,25 @@ sync_search_fft_kernel(const float2* __restrict__ x, int n,
     lte::fft::row_sum<T>(pw, red);
     lte::fft::row_sync<T>();     // y written by the whole row
     lte::fft::transform<N, T, true>(y, y, tw, t, 1.f, [] {});
-    if (r >= rows) continue;
     const float scale = sqrtf(big_l / fmaxf(pw[0], 1e-30f));
-    float* o = out + (long)r * nd;
-    for (int d = t; d < nd; d += T) {
-      const float2 v = y[d];
-      o[d] = sqrtf(v.x * v.x + v.y * v.y) * scale;
+    if constexpr (kPeaks) {   // every row reduces: row_argmax may sync
+      float best = -INFINITY;
+      int at = INT_MAX;
+      for (int d = t; d < nd; d += T) {
+        const float v = scaled_abs(y[d], scale);
+        if (beats(v, d, best, at)) {
+          best = v;
+          at = d;
+        }
+      }
+      row_argmax<T>(best, at, red, redi);
+      if (t == 0 && r < rows) {
+        out[r] = best;
+        delay[r] = at;
+      }
+    } else if (r < rows) {
+      float* o = out + (long)r * nd;
+      for (int d = t; d < nd; d += T) o[d] = scaled_abs(y[d], scale);
     }
   }
 }
@@ -178,22 +263,25 @@ inline int direct_tile(int stride, int nfft, int m0, int rxb) {
   return direct_smem(tile, stride, m0, rxb, nfft) > kSmemMax ? 0 : tile;
 }
 
-// kt: [klen, nd] K_d[m], tap-major.  Block (trial tile, delay tile, frame);
-// thread tid owns trial tid of the tile.  80 registers: three blocks an SM.
+// kt: [klen, nd] K_d[m], tap-major.  Block (trial tile, delay tile, frame)
+// in the surface form, (trial tile, 1, frame) in the peaks form, which walks
+// the delay tiles itself; thread tid owns trial tid of the tile.  80
+// registers: three blocks an SM.  kOneTile (peaks form, nd <= kDt): no
+// running max outlives the sums, which keeps that kernel free of spills.
+template <bool kPeaks, bool kOneTile>
 __global__ void __launch_bounds__(lte::kThreads, kMinBlocks)
 sync_search_direct_kernel(const float2* __restrict__ x, int n,
                           const float2* __restrict__ kt, int nd,
-                          float* __restrict__ out, int n_trials, int tile,
-                          int cp, int stride, int nfft, int m0, int rxb,
-                          float big_l) {
+                          float* __restrict__ out, int* __restrict__ delay,
+                          int n_trials, int tile, int cp, int stride, int nfft,
+                          int m0, int rxb, float big_l) {
   extern __shared__ float4 smem[];
   const int span = direct_span(tile, stride, m0, rxb, nfft);
   float2* xs = reinterpret_cast<float2*>(smem);          // [span]
   float2* ks = xs + even_up(span);                       // [kKc][kDp]
-  float* os = reinterpret_cast<float*>(smem);            // [tile][kDt], later
 
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * tile, d0 = blockIdx.y * kDt, b = blockIdx.z;
+  const int p0 = blockIdx.x * tile, b = blockIdx.z;
   const float2* xb = x + (long)b * n;
   const long base = cp + (long)p0 * stride;
   for (int i = tid; i < span; i += lte::kThreads) {
@@ -203,94 +291,161 @@ sync_search_direct_kernel(const float2* __restrict__ x, int n,
 
   const float2* xt = xs + (tid < tile ? tid : 0) * stride;   // the trial
   float2 acc[kDt];
+  // the sums of delay tile d0 (delays d0 + j) into acc; returns the scale
+  auto tile_sums = [&](int d0) {
 #pragma unroll
-  for (int j = 0; j < kDt; ++j) acc[j] = make_float2(0.f, 0.f);
-  float pw = 0.f;
-
-  for (int l = 0; l < m0; ++l) {
-    float e = 0.f;                                 // window energy
-    float2 se = make_float2(0.f, 0.f), so = se;    // even and odd samples
-    for (int n0 = 0; n0 < nfft; n0 += kKc) {
-      const int kmax = min(kKc, nfft - n0), m = l * rxb + n0;
-      __syncthreads();               // xs loaded; previous stage consumed
-      for (int i = tid; i < kmax * kDt; i += lte::kThreads) {
-        const int kk = i / kDt, dd = i - kk * kDt, gd = d0 + dd;
-        ks[kk * kDp + dd] = gd < nd ? __ldg(kt + (long)(m + kk) * nd + gd)
-                                    : make_float2(0.f, 0.f);
-      }
-      __syncthreads();
-      // one tap: a sample and 9 words of K for 68 FFMA
-      auto tap = [&](int kk, float2& s) {
-        const float4* k4 = reinterpret_cast<const float4*>(ks + kk * kDp);
-        float4 kv[kDp / 2];
-#pragma unroll
-        for (int j = 0; j < kDp / 2; ++j) kv[j] = k4[j];
-        const float2 xv = xt[m + kk];
-        e = fmaf(xv.x, xv.x, fmaf(xv.y, xv.y, e));
-        s.x += xv.x;
-        s.y += xv.y;
-#pragma unroll
-        for (int j = 0; j < kDt; ++j) {
-          const float kr = (j & 1) ? kv[j / 2].z : kv[j / 2].x;
-          const float ki = (j & 1) ? kv[j / 2].w : kv[j / 2].y;
-          acc[j].x = fmaf(xv.x, kr, fmaf(-xv.y, ki, acc[j].x));
-          acc[j].y = fmaf(xv.x, ki, fmaf(xv.y, kr, acc[j].y));
+    for (int j = 0; j < kDt; ++j) acc[j] = make_float2(0.f, 0.f);
+    float pw = 0.f;
+    for (int l = 0; l < m0; ++l) {
+      float e = 0.f;                                 // window energy
+      float2 se = make_float2(0.f, 0.f), so = se;    // even and odd samples
+      for (int n0 = 0; n0 < nfft; n0 += kKc) {
+        const int kmax = min(kKc, nfft - n0), m = l * rxb + n0;
+        __syncthreads();             // xs loaded; previous stage consumed
+        for (int i = tid; i < kmax * kDt; i += lte::kThreads) {
+          const int kk = i / kDt, dd = i - kk * kDt, gd = d0 + dd;
+          ks[kk * kDp + dd] = gd < nd ? __ldg(kt + (long)(m + kk) * nd + gd)
+                                      : make_float2(0.f, 0.f);
         }
-      };
+        __syncthreads();
+        // one tap: a sample and 9 words of K for 68 FFMA
+        auto tap = [&](int kk, float2& s) {
+          const float4* k4 = reinterpret_cast<const float4*>(ks + kk * kDp);
+          float4 kv[kDp / 2];
+#pragma unroll
+          for (int j = 0; j < kDp / 2; ++j) kv[j] = k4[j];
+          const float2 xv = xt[m + kk];
+          e = fmaf(xv.x, xv.x, fmaf(xv.y, xv.y, e));
+          s.x += xv.x;
+          s.y += xv.y;
+#pragma unroll
+          for (int j = 0; j < kDt; ++j) {
+            const float kr = (j & 1) ? kv[j / 2].z : kv[j / 2].x;
+            const float ki = (j & 1) ? kv[j / 2].w : kv[j / 2].y;
+            acc[j].x = fmaf(xv.x, kr, fmaf(-xv.y, ki, acc[j].x));
+            acc[j].y = fmaf(xv.x, ki, fmaf(xv.y, kr, acc[j].y));
+          }
+        };
 #pragma unroll kUnroll
-      for (int kk = 0; kk < kmax; kk += 2) {   // nfft and kKc are even
-        tap(kk, se);
-        tap(kk + 1, so);
+        for (int kk = 0; kk < kmax; kk += 2) {   // nfft and kKc are even
+          tap(kk, se);
+          tap(kk + 1, so);
+        }
+      }
+      const float dcr = se.x + so.x, dci = se.y + so.y;
+      const float nyr = se.x - so.x, nyi = se.y - so.y;
+      pw += (float)nfft * e - (dcr * dcr + dci * dci) -
+            (nyr * nyr + nyi * nyi);
+    }
+    return sqrtf(big_l / fmaxf(pw, 1e-30f));
+  };
+
+  if constexpr (kPeaks) {
+    float best = -INFINITY;          // the running max and its delay
+    int at = INT_MAX;
+    auto reduce = [&](int d0, float scale) {
+      const int dn = min(kDt, nd - d0);
+#pragma unroll
+      for (int j = 0; j < kDt; ++j) {
+        const float v = scaled_abs(acc[j], scale);
+        if (j < dn && beats(v, d0 + j, best, at)) {
+          best = v;
+          at = d0 + j;
+        }
+      }
+    };
+    if constexpr (kOneTile) {
+      reduce(0, tile_sums(0));
+    } else {
+      for (int d0 = 0; d0 < nd; d0 += kDt) reduce(d0, tile_sums(d0));
+    }
+    if (tid < tile && p0 + tid < n_trials) {   // lanes: consecutive trials
+      out[(long)b * n_trials + p0 + tid] = best;
+      delay[(long)b * n_trials + p0 + tid] = at;
+    }
+  } else {
+    const int d0 = blockIdx.y * kDt;
+    const float scale = tile_sums(d0);
+    float* os = reinterpret_cast<float*>(smem);          // [tile][kDt]
+    __syncthreads();                 // xs and ks consumed: os takes over
+    if (tid < tile) {
+#pragma unroll
+      for (int j = 0; j < kDt; ++j)
+        os[tid * kDt + j] = scaled_abs(acc[j], scale);
+    }
+    __syncthreads();
+    const int np = min(tile, n_trials - p0), dn = min(kDt, nd - d0);
+    float* o = out + ((long)b * n_trials + p0) * nd + d0;
+    if (dn == nd && nd == kDt) {     // whole rows: the tile is contiguous
+      for (int i = tid; i < np * kDt; i += lte::kThreads) o[i] = os[i];
+    } else {
+      for (int i = tid; i < np * dn; i += lte::kThreads) {
+        const int pl = i / dn, d = i - pl * dn;
+        o[(long)pl * nd + d] = os[pl * kDt + d];
       }
     }
-    const float dcr = se.x + so.x, dci = se.y + so.y;
-    const float nyr = se.x - so.x, nyi = se.y - so.y;
-    pw += (float)nfft * e - (dcr * dcr + dci * dci) - (nyr * nyr + nyi * nyi);
   }
+}
 
-  __syncthreads();                   // xs and ks consumed: os takes over
-  if (tid < tile) {
-    const float scale = sqrtf(big_l / fmaxf(pw, 1e-30f));
-#pragma unroll
-    for (int j = 0; j < kDt; ++j)
-      os[tid * kDt + j] =
-          sqrtf(acc[j].x * acc[j].x + acc[j].y * acc[j].y) * scale;
+// The direct kernel of form (kPeaks, kOneTile) over the grid of its form
+// (module note); the shared-memory opt-in is made at its first launch on a
+// device.
+template <bool kPeaks, bool kOneTile>
+int direct_launch(const float2* x, int batch, int n, const float2* kt, int nd,
+                  float* out, int* delay, int n_trials, int tile, long smem,
+                  int cp, int stride, int nfft, int m0, int rxb, float big_l,
+                  cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> opted[kMaxDevices];   // shared-memory opt-in done
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev].load()) {
+    err = cudaFuncSetAttribute(sync_search_direct_kernel<kPeaks, kOneTile>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev].store(true);
   }
-  __syncthreads();
-  const int np = min(tile, n_trials - p0), dn = min(kDt, nd - d0);
-  float* o = out + ((long)b * n_trials + p0) * nd + d0;
-  if (dn == nd && nd == kDt) {       // whole rows: the tile is contiguous
-    for (int i = tid; i < np * kDt; i += lte::kThreads) o[i] = os[i];
-  } else {
-    for (int i = tid; i < np * dn; i += lte::kThreads) {
-      const int pl = i / dn, d = i - pl * dn;
-      o[(long)pl * nd + d] = os[pl * kDt + d];
-    }
-  }
+  const dim3 grid((n_trials + tile - 1) / tile,
+                  kPeaks ? 1 : (nd + kDt - 1) / kDt, batch);
+  sync_search_direct_kernel<kPeaks, kOneTile>
+      <<<grid, lte::kThreads, smem, stream>>>(x, n, kt, nd, out, delay,
+                                              n_trials, tile, cp, stride, nfft,
+                                              m0, rxb, big_l);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [batch, n] complex64; zc: [m0, nfft] conj(ZC) by FFT bin, zero off the
 // synch bins; tw: fft.cuh's table for nfft (a power of two in [16, 4096],
-// cp < nfft); out [batch, n_trials, cp + 1] float32.
+// cp < nfft).  delay null: out [batch, n_trials, cp + 1] float32 (the
+// surface form); else out [batch, n_trials] float32 the peak and delay
+// [batch, n_trials] int32 its delay (the peaks form).
 extern "C" int sync_search_fft(const void* x, int batch, int n, const void* zc,
                                const void* tw, void* out, int n_trials, int cp,
                                int stride, int nfft, int m0, int rxb,
-                               float big_l, void* stream) {
+                               float big_l, void* delay, void* stream) {
   if (cp >= nfft) return (int)cudaErrorInvalidValue;
   const int rows = batch * n_trials;
   return lte::fft::dispatch(nfft, [&](auto nn) {
     constexpr int N = decltype(nn)::value;
-    auto go = [&](auto bufs) {
+    auto go = [&](auto bufs, auto peaks) {
       constexpr int kBufs = decltype(bufs)::value;
-      return lte::fft::launch<N, sync_search_fft_kernel<N, kBufs>, kBufs>(
+      constexpr bool kPeaks = decltype(peaks)::value;
+      return lte::fft::launch<N, sync_search_fft_kernel<N, kBufs, kPeaks>,
+                              kBufs>(
           rows, (cudaStream_t)stream, (const float2*)x, n, (const float2*)zc,
-          (const float2*)tw, (float*)out, rows, n_trials, cp, stride, m0, rxb,
-          big_l);
+          (const float2*)tw, (float*)out, (int*)delay, rows, n_trials, cp,
+          stride, m0, rxb, big_l);
     };
-    return m0 > 1 ? go(std::integral_constant<int, 3>{})
-                  : go(std::integral_constant<int, 2>{});
+    auto form = [&](auto bufs) {
+      return delay ? go(bufs, std::true_type{}) : go(bufs, std::false_type{});
+    };
+    return m0 > 1 ? form(std::integral_constant<int, 3>{})
+                  : form(std::integral_constant<int, 2>{});
   });
 }
 
@@ -301,33 +456,26 @@ extern "C" int sync_search_direct_fits(int stride, int nfft, int m0, int rxb) {
   return direct_tile(stride, nfft, m0, rxb) > 0;
 }
 
-// x [batch, n] complex64; kt [klen, nd] complex64 K_d[m], tap-major; out
-// [batch, n_trials, nd] float32.  cudaErrorInvalidValue where
+// x [batch, n] complex64; kt [klen, nd] complex64 K_d[m], tap-major.  delay
+// null: out [batch, n_trials, nd] float32 (the surface form); else out
+// [batch, n_trials] float32 the peak and delay [batch, n_trials] int32 its
+// delay (the peaks form).  cudaErrorInvalidValue where
 // sync_search_direct_fits gives 0.
 extern "C" int sync_search_direct(const void* x, int batch, int n,
                                   const void* kt, int nd, void* out,
                                   int n_trials, int cp, int stride, int nfft,
-                                  int m0, int rxb, float big_l, void* stream) {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> opted[kMaxDevices];   // shared-memory opt-in done
+                                  int m0, int rxb, float big_l, void* delay,
+                                  void* stream) {
   const int tile = direct_tile(stride, nfft, m0, rxb);
   if (tile == 0) return (int)cudaErrorInvalidValue;
   const long smem = direct_smem(tile, stride, m0, rxb, nfft);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!opted[dev].load()) {
-    err = cudaFuncSetAttribute(sync_search_direct_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemMax);
-    if (err != cudaSuccess) return (int)err;
-    opted[dev].store(true);
-  }
-  const dim3 grid((n_trials + tile - 1) / tile, (nd + kDt - 1) / kDt, batch);
-  sync_search_direct_kernel<<<grid, lte::kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      (const float2*)x, n, (const float2*)kt, nd, (float*)out, n_trials, tile,
-      cp, stride, nfft, m0, rxb, big_l);
-  return (int)cudaGetLastError();
+  auto go = [&](auto peaks, auto one_tile) {
+    return direct_launch<decltype(peaks)::value, decltype(one_tile)::value>(
+        (const float2*)x, batch, n, (const float2*)kt, nd, (float*)out,
+        (int*)delay, n_trials, tile, smem, cp, stride, nfft, m0, rxb, big_l,
+        (cudaStream_t)stream);
+  };
+  if (!delay) return go(std::false_type{}, std::false_type{});
+  return nd <= kDt ? go(std::true_type{}, std::true_type{})
+                   : go(std::true_type{}, std::false_type{});
 }

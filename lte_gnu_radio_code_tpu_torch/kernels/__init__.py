@@ -5,8 +5,9 @@ K1 ``ofdm_mod``, K2 ``equalize``, K3 ``channel_conv``, K4 ``sync_search``,
 and ``tracker`` (the tracker's step loop, which has no Pallas kernel).
 Each module keeps ``launches``, a plain int that its wrapper raises by one
 per kernel launch (the twin never counts); K4 and the tracker also keep
-``route_launches``, the same launches by route.  :func:`reset_launch_counts`
-sets both to 0.
+``route_launches``, the same launches by route, and K4 ``peak_launches``,
+those of its launches in the peaks form, by route.
+:func:`reset_launch_counts` sets them all to 0.
 """
 
 KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
@@ -26,5 +27,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for m in _modules().values():
         m.launches = 0
-        for kind in getattr(m, "route_launches", ()):
-            m.route_launches[kind] = 0
+        for by_route in (getattr(m, "route_launches", {}),
+                         getattr(m, "peak_launches", {})):
+            for kind in by_route:
+                by_route[kind] = 0

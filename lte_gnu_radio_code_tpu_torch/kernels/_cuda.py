@@ -34,9 +34,9 @@ SIGNATURES = {
     "equalize_fft": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "channel_conv": (_P, _P, _I, _I, _I, _P, _I, _P),
     "sync_search_fft": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _P),
+                        _P, _P),
     "sync_search_direct": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _P),
+                           _F, _P, _P),
 }
 # the tracker's two routes take the same arguments (csrc/tracker.cu)
 SIGNATURES["tracker_scan"] = SIGNATURES["tracker_scan_warp"] = (

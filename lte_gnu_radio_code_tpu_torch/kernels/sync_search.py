@@ -25,6 +25,12 @@ sequence the search correlates with is a parameter (default
 sequence's bytes (``ops.fast_sync.zc_key``).
 ``sync_corr_abs_fft_plain`` is the FFT route's plain version, used by the
 tests and ``chip_smoke.py`` only.
+
+Each kernel has two output forms.  :func:`sync_corr_abs` gives the surface
+``[..., n_trials, cp+1]``; :func:`sync_peaks` gives each trial's peak and
+its delay, ``surface.max(-1)`` bit for bit (ties to the lowest delay),
+reduced inside the kernel so that the surface is never written: the form
+for every caller whose next step is that reduction.
 """
 
 from __future__ import annotations
@@ -42,9 +48,18 @@ from . import _cuda, fft
 
 launches = 0                                  # kernel launches since reset
 route_launches = {"fft": 0, "direct": 0}      # the same, by route (running)
+peak_launches = {"fft": 0, "direct": 0}       # of those, in the peaks form
 
 sync_corr_abs_plain = fast_sync.sync_corr_abs_fast     # the plain twin
 sync_corr_abs_fft_plain = fast_sync.sync_corr_abs_fft  # the FFT form, plain
+
+
+def sync_peaks_plain(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+                     zc=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The peaks form's plain twin: the twin's surface reduced by
+    ``max(-1)``, the delay as int32."""
+    peak, delay = sync_corr_abs_plain(cfg, x, n_trials, zc).max(-1)
+    return peak, delay.to(torch.int32)
 
 # The FFT route is taken where the product costs at least this many times
 # the FFT form's operations: the in-block transforms run far below the FFMA
@@ -85,10 +100,12 @@ def _kernels_t(cfg: OFDMConfig, key: bytes | None = None) -> np.ndarray:
 
 
 def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
-            zc=None) -> torch.Tensor:
-    """Launch the kernel of route ``kind`` on a CUDA tensor (the wrapper's
-    CUDA branch; tests and ``chip_smoke.py`` call it to hold either kernel
-    at a shape the rule gives to the other)."""
+            zc=None, form: str = "surface"):
+    """Launch the kernel of route ``kind`` on a CUDA tensor in output form
+    ``form`` ("surface": the [..., n_trials, cp+1] tensor; "peaks": (peak,
+    delay), each [..., n_trials]) (the wrappers' CUDA branch; tests and
+    ``chip_smoke.py`` call it to hold either kernel at a shape the rule
+    gives to the other)."""
     global launches
     key = fast_sync.zc_key(zc)
     x2 = x.reshape(-1, x.shape[-1])
@@ -97,7 +114,14 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
     nfft, cp, m0, dev = cfg.nfft, cfg.cp_len, cfg.m_synch, x.device
     nd = cp + 1
     big_l = float(m0 * cfg.num_synch_bins)
-    out = torch.empty(b, n_trials, nd, dtype=torch.float32, device=dev)
+    if form == "surface":
+        out = torch.empty(b, n_trials, nd, dtype=torch.float32, device=dev)
+        delay = None
+    elif form == "peaks":
+        out = torch.empty(b, n_trials, dtype=torch.float32, device=dev)
+        delay = torch.empty(b, n_trials, dtype=torch.int32, device=dev)
+    else:
+        raise ValueError(f"unknown output form {form!r}")
     if kind == "fft":
         fft.require(nfft)
         if nd > nfft:
@@ -119,11 +143,25 @@ def _launch(kind: str, cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
                 cfg.rx_b_len, big_l)
     else:
         raise ValueError(f"unknown route {kind!r}")
+    args += (None if delay is None else delay.data_ptr(),)
     if b and n_trials:
         _cuda.launch(*args)
         launches += 1
         route_launches[kind] += 1
-    return out.reshape(*x.shape[:-1], n_trials, nd)
+        if delay is not None:
+            peak_launches[kind] += 1
+    lead = x.shape[:-1]
+    if delay is None:
+        return out.reshape(*lead, n_trials, nd)
+    return out.reshape(*lead, n_trials), delay.reshape(*lead, n_trials)
+
+
+def _check_config(cfg: OFDMConfig) -> None:
+    if cfg.num_synch_bins != cfg.nfft - 2:
+        raise ValueError("Parseval normalisation requires the canonical "
+                         "all-but-DC/Nyquist synch bins")
+    if cfg.rx_b_len % 2:
+        raise ValueError("the (-1)^n window sign needs even nfft+cp")
 
 
 def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
@@ -133,12 +171,23 @@ def sync_corr_abs(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
     sequence ``zc`` (None: ``zc_for_config(cfg)``).  A CPU tensor takes the
     plain twin; a CUDA tensor takes the kernel that
     ``route(nfft, cp, stride, m_synch)`` names, or raises."""
-    if cfg.num_synch_bins != cfg.nfft - 2:
-        raise ValueError("Parseval normalisation requires the canonical "
-                         "all-but-DC/Nyquist synch bins")
-    if cfg.rx_b_len % 2:
-        raise ValueError("the (-1)^n window sign needs even nfft+cp")
+    _check_config(cfg)
     if _cuda.on_cpu(x):
         return sync_corr_abs_plain(cfg, x, n_trials, zc)
     return _launch(route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch),
                    cfg, x, n_trials, zc)
+
+
+def sync_peaks(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
+               zc=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each trial's peak over the delays and its delay: (peak float32,
+    delay int32), each [n_trials] for x [n] and [B, n_trials] for x [B, n];
+    ``sync_corr_abs(...).max(-1)`` exactly, ties to the lowest delay, with
+    the same checks and route rule.  A CPU tensor takes
+    :func:`sync_peaks_plain`; a CUDA tensor one launch of the kernel in its
+    peaks form."""
+    _check_config(cfg)
+    if _cuda.on_cpu(x):
+        return sync_peaks_plain(cfg, x, n_trials, zc)
+    return _launch(route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch),
+                   cfg, x, n_trials, zc, form="peaks")

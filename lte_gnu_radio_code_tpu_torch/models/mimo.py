@@ -15,7 +15,7 @@ bin.  Every function takes leading frame axes: bits [..., 2, n] or
 The search runs on RX antenna 0 against slice 0 alone: K4
 (``kernels/sync_search.py``) with the single-synch view of the config
 (:func:`search_config`) and the ZC slice as its sequence, then
-``ops/sync.py:first_lock``.  Pilots, data windows and the per-bin 2x2
+``ops/sync.py:lock_from_peaks``.  Pilots, data windows and the per-bin 2x2
 detection stay raw and in plain torch: K2 would normalise each window's
 power, which the receiver leaves to one scale per stream at the end, and
 the TX norms are not K1's.  The chains run on the CUDA device unless asked
@@ -245,11 +245,11 @@ def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     chan_freq [..., 2, 2, nfft], data [..., 2, num_patterns*nd, B])."""
     dev = y.device
     cfg1 = search_config(cfg)
-    search = (sync_search.sync_corr_abs_plain if plain
-              else sync_search.sync_corr_abs)
-    corr = search(cfg1, y[..., 0, :].contiguous(), n_trials,
-                  zc=_search_zc(cfg))
-    ptr, delay, _, found, _ = sync.first_lock(cfg1, corr)
+    search = (sync_search.sync_peaks_plain if plain
+              else sync_search.sync_peaks)
+    peaks = search(cfg1, y[..., 0, :].contiguous(), n_trials,
+                   zc=_search_zc(cfg))
+    ptr, delay, _, found, _ = sync.lock_from_peaks(cfg1, *peaks)
 
     seg = cfg.num_synch_bins
     synch_bins = sync._bins_on(dev, cfg.nfft, seg)

@@ -88,10 +88,9 @@ def rx_frame(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
         at = first[..., None, None].expand(*first.shape, 1, spectra.shape[-1])
         spec1 = spectra.gather(-2, at)[..., 0, :]
     elif fast in ("conv", "kernel"):
-        search = (sync_search.sync_corr_abs if fast == "kernel"
-                  else fast_sync.sync_corr_abs_fast)
-        corr = search(cfg, x, n_trials)
-        ptr, delay_idx, peak, found, first = sync.first_lock(cfg, corr)
+        peaks = (sync_search.sync_peaks(cfg, x, n_trials) if fast == "kernel"
+                 else fast_sync.sync_corr_abs_fast(cfg, x, n_trials).max(-1))
+        ptr, delay_idx, peak, found, first = sync.lock_from_peaks(cfg, *peaks)
         spec1 = sync.sync_spectrum_at(
             cfg, x, first, method="dft" if fast == "kernel" else None)
     else:
@@ -127,19 +126,21 @@ def rx_frame(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
 def rx_frames_batch(cfg: OFDMConfig, xs: torch.Tensor, n_trials: int,
                     num_patterns: int, plain: bool = False) -> BatchRxResult:
     """Whole-batch RX (``rxofdm.rx_frames_batch``): xs [B, n].  One K4
-    launch searches every frame; the data demod runs as one K2 launch over
+    launch searches every frame and gives each trial's peak and delay (its
+    peaks form); the data demod runs as one K2 launch over
     the flattened [B*K, nfft] windows with per-row coefficients (with a
     pilot grid: the rotation alone, then the pilot estimate and the MMSE
     gain in torch); the demap is ``rx_frame``'s, per frame.  ``plain`` runs
     the kernels' plain versions instead (what the kernels are held to on
     the card), the pilot equaliser through ``torch.fft``.  Spans
     ``ofdm.search``, ``ofdm.lock``, ``ofdm.demod``, ``ofdm.demap``."""
-    search = (sync_search.sync_corr_abs_plain if plain
-              else sync_search.sync_corr_abs)
+    search = (sync_search.sync_peaks_plain if plain
+              else sync_search.sync_peaks)
     with profiling.span("ofdm.search"):
-        corr = search(cfg, xs, n_trials)                 # [B, p, D]
+        peak, delay = search(cfg, xs, n_trials)          # [B, p] each
     with profiling.span("ofdm.lock"):
-        ptr, delay_idx, _, found, first = sync.first_lock(cfg, corr)
+        ptr, delay_idx, _, found, first = sync.lock_from_peaks(cfg, peak,
+                                                               delay)
     with profiling.span("ofdm.demod"):
         if cfg.pilot_grid != "none":
             ph, h_data = pilots.equalize_data_symbols_pilot(

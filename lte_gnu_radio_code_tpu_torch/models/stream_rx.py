@@ -77,9 +77,9 @@ def detect_trials(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
     """Per-trial (peak, delay) over the sync search of x [..., n]
     (``stream_rx.py:detect_trials``): (dmax_val [..., p] f32, dmax_ind
     [..., p] i32).  ``fast`` as in ``rxofdm.rx_frame``: None / "ifft",
-    "exact", "conv" or "kernel" (K4, one launch for every stream).  Peak and
-    delay come from one reduction; ties go to the first delay, as
-    jnp.argmax."""
+    "exact", "conv" or "kernel" (K4 in its peaks form, one launch for every
+    stream, the reduction inside it).  Peak and delay come from one
+    reduction; ties go to the first delay, as jnp.argmax."""
     fast = fast or "ifft"
     if fast in ("ifft", "exact"):
         corr = sync.corr_abs_from_spectra(
@@ -87,7 +87,7 @@ def detect_trials(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
     elif fast == "conv":
         corr = fast_sync.sync_corr_abs_fast(cfg, x, n_trials)
     elif fast == "kernel":
-        corr = sync_search.sync_corr_abs(cfg, x, n_trials)
+        return sync_search.sync_peaks(cfg, x, n_trials)
     else:
         raise ValueError(f"unknown sync path {fast!r}")
     dmax_val, dmax_ind = corr.max(-1)

@@ -2,7 +2,8 @@
 
 Port of ``lte_gnu_radio_code_tpu/ops/sync.py``: ``n_trials_for``,
 ``sync_spectra``, ``sync_spectrum_at``, ``sync_correlate``,
-``sync_correlate_ifft``, ``corr_abs_from_spectra``, ``first_lock``,
+``sync_correlate_ifft``, ``corr_abs_from_spectra``, ``first_lock`` (and
+``lock_from_peaks``, its part after the per-trial reduction),
 ``estimate_channel``, ``mmse_gain``, ``demap_unbias_gain`` and
 ``equalize_data_symbols`` (the plain twin of K2's caller), and the
 refractory (multi-detection) selection:
@@ -166,19 +167,27 @@ def gate_level(cfg: OFDMConfig) -> float:
     return cfg.detection_gate * cfg.m_synch * cfg.num_synch_bins
 
 
-def first_lock(cfg: OFDMConfig, corr_abs: torch.Tensor):
-    """First trial whose peak crosses the gate, per frame: corr_abs
-    [..., p, D] -> (ptr, delay_idx, peak, found, first), each [...]
-    (``sync.py:first_lock``).  Ties go to the first index, as jnp.argmax."""
-    dmax_val = corr_abs.amax(-1)
-    dmax_ind = corr_abs.argmax(-1)
-    mask = dmax_val > gate_level(cfg)
+def lock_from_peaks(cfg: OFDMConfig, peak: torch.Tensor,
+                    delay: torch.Tensor):
+    """First trial whose peak crosses the gate, per frame, from each
+    trial's peak and delay (peak, delay [..., p], e.g. from
+    ``kernels/sync_search.py:sync_peaks``) -> (ptr, delay_idx, peak, found,
+    first), each [...] (``sync.py:first_lock`` after its per-trial
+    reduction).  No crossing gives trial 0, as jnp.argmax."""
+    mask = peak > gate_level(cfg)
     found = mask.any(-1)
     first = mask.to(torch.int32).argmax(-1)       # argmax rejects bool
     ptr = cfg.cp_len + cfg.stride * first
-    delay = dmax_ind.gather(-1, first[..., None])[..., 0]
-    peak = dmax_val.gather(-1, first[..., None])[..., 0]
-    return ptr, delay, peak, found, first
+    at = first[..., None]
+    return (ptr, delay.gather(-1, at)[..., 0], peak.gather(-1, at)[..., 0],
+            found, first)
+
+
+def first_lock(cfg: OFDMConfig, corr_abs: torch.Tensor):
+    """:func:`lock_from_peaks` of corr_abs [..., p, D]: one ``max(-1)``
+    gives each trial's peak and delay (``sync.py:first_lock``).  Ties go to
+    the first index, as jnp.argmax."""
+    return lock_from_peaks(cfg, *corr_abs.max(-1))
 
 
 def scalar_like(v, ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

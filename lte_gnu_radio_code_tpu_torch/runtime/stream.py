@@ -42,11 +42,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import equalize, sync_search
+from ..kernels import equalize
 from ..kernels import tracker as tracker_kernel
 from ..models import legacy_rx, stream_rx, tracker
 from ..ops import cfo as cfo_ops
-from ..ops import fast_sync, sync
+from ..ops import sync
 from ..utils import profiling
 from ..utils.device import as_samples, kernel_default, resolve_device
 from ..utils.params import OFDMConfig
@@ -127,15 +127,13 @@ def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
     fast = fast or "exact"
     if fast in ("ifft", "exact"):
         spectra = sync.sync_spectra(cfg, ext, t_per)
-        corr = sync.corr_abs_from_spectra(cfg, spectra, fast)
+        dmax_val, dmax_ind = sync.corr_abs_from_spectra(cfg, spectra,
+                                                        fast).max(-1)
     elif fast in ("conv", "kernel"):
         spectra = None
-        search = (sync_search.sync_corr_abs if fast == "kernel"
-                  else fast_sync.sync_corr_abs_fast)
-        corr = search(cfg, ext, t_per)
+        dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
     else:
         raise ValueError(f"unknown sync path {fast!r}")
-    dmax_val, dmax_ind = corr.max(-1)
     global_ptrs = ext_start + cfg.cp_len + cfg.stride * torch.arange(
         t_per, device=dev)
     # the batch RX evaluates no trial before cp: mask them, so that the

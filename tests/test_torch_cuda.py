@@ -42,6 +42,7 @@ from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, mimo,
                                                  rxofdm, split, stream_rx,
                                                  txofdm)
 from lte_gnu_radio_code_tpu_torch.ops import channel, pilots, sync
+from lte_gnu_radio_code_tpu_torch.ops.zadoff_chu import zc_for_config
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 from lte_gnu_radio_code_tpu_torch.utils import profiling
 from lte_gnu_radio_code_tpu_torch.utils.params import (CFO_CASES, DSSS_CASES,
@@ -257,38 +258,116 @@ def test_k4_matches_twin(dev, cfg):
                                out[1], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("m_synch", [1, 2])
-@pytest.mark.parametrize("nfft", [16, 32, 64, 128, 256, 512, 1024, 2048,
-                                  4096])
-def test_k4_fft_route_at_every_size(dev, nfft, m_synch):
-    """The FFT kernel at each nfft it takes, stride cp - 1 (odd, so window
-    starts fall on 8 and on 16 bytes in turn; frames of odd length too),
-    one and two synch symbols, three frames with more (frame, trial) pairs
-    than the card holds blocks, an all-zero frame, and trials that run past
-    the end of the buffer."""
+K4_FFT_SIZES = pytest.mark.parametrize(
+    "nfft,m_synch", [(nfft, m) for nfft in (16, 32, 64, 128, 256, 512, 1024,
+                                            2048, 4096) for m in (1, 2)])
+K4_DIRECT_SHAPES = pytest.mark.parametrize("nfft,stride,m_synch", [
+    (16, 1, 1), (32, 1, 1), (64, 1, 1), (64, 1, 2), (128, 1, 1), (256, 1, 1),
+    (96, 1, 1), (96, 23, 1), (64, 15, 1), (64, 16, 2), (1024, 255, 1)])
+
+
+def _k4_fft_case(dev, nfft, m_synch):
+    """Stride cp - 1 (odd, so window starts fall on 8 and on 16 bytes in
+    turn; frames of odd length too), three frames with more (frame, trial)
+    pairs than the card holds blocks, frame 0 all zero, and trials that run
+    past the end of the buffer."""
     cfg = _k4_cfg(nfft, None, m_synch)
     n_trials = max(700, (1 << 18) // cfg.stride)
     n = cfg.cp_len + n_trials * cfg.stride + 1 - (n_trials * cfg.stride) % 2
     assert n % 2 == 1
     x = _cplx(dev, 30 + m_synch, 3, n)
     x[0] = 0
-    _k4_check("fft", cfg, x, n_trials)
+    return cfg, x, n_trials
 
 
-@pytest.mark.parametrize("nfft,stride,m_synch", [
-    (16, 1, 1), (32, 1, 1), (64, 1, 1), (64, 1, 2), (128, 1, 1), (256, 1, 1),
-    (96, 1, 1), (96, 23, 1), (64, 15, 1), (64, 16, 2), (1024, 255, 1)])
-def test_k4_direct_route(dev, nfft, stride, m_synch):
-    """The direct kernel at the dense search's sizes (one delay tile of 17
-    up to four at nfft 256), at nfft 96 (not a power of two), and strided
-    (odd and even strides; at nfft 1024 a block's trials are cut to the
-    span that fits in shared memory), with trials past the buffer."""
+def _k4_direct_case(dev, nfft, stride, m_synch):
+    """Three frames, frame 0 all zero, trials past the buffer."""
     cfg = _k4_cfg(nfft, stride, m_synch)
     n_trials = 3000 // stride + 40
     n = cfg.cp_len + (n_trials - 30) * stride + cfg.m_synch * cfg.rx_b_len + 1
     x = _cplx(dev, 40, 3, n)
     x[0] = 0
-    _k4_check("direct", cfg, x, n_trials)
+    return cfg, x, n_trials
+
+
+def _k4_peaks_check(kind, cfg, x, n_trials, zc=None):
+    """K4's ``kind`` kernel in the peaks form on x [B, n] against the same
+    kernel's surface reduced by max(-1): peak and delay bit for bit, the
+    delay int32; one launch counted on that route, in the peaks form; 1-D
+    input equal to its row of the batch.  Returns (surface, peak, delay)."""
+    surface = sync_search._launch(kind, cfg, x, n_trials, zc)
+    routes, peaks = (dict(sync_search.route_launches),
+                     dict(sync_search.peak_launches))
+    peak, delay = sync_search._launch(kind, cfg, x, n_trials, zc,
+                                      form="peaks")
+    assert sync_search.route_launches == {**routes, kind: routes[kind] + 1}
+    assert sync_search.peak_launches == {**peaks, kind: peaks[kind] + 1}
+    assert peak.shape == delay.shape == (x.shape[0], n_trials)
+    assert peak.dtype == torch.float32 and delay.dtype == torch.int32
+    want, at = surface.max(-1)
+    assert torch.equal(peak.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(delay, at.to(torch.int32))
+    one = sync_search._launch(kind, cfg, x[-1], n_trials, zc, form="peaks")
+    assert torch.equal(one[0], peak[-1]) and torch.equal(one[1], delay[-1])
+    return surface, peak, delay
+
+
+@K4_FFT_SIZES
+def test_k4_fft_route_at_every_size(dev, nfft, m_synch):
+    """The FFT kernel at each nfft it takes, one and two synch symbols
+    (:func:`_k4_fft_case`)."""
+    _k4_check("fft", *_k4_fft_case(dev, nfft, m_synch))
+
+
+@K4_DIRECT_SHAPES
+def test_k4_direct_route(dev, nfft, stride, m_synch):
+    """The direct kernel at the dense search's sizes (one delay tile of 17
+    up to four at nfft 256), at nfft 96 (not a power of two), and strided
+    (odd and even strides; at nfft 1024 a block's trials are cut to the
+    span that fits in shared memory), with trials past the buffer."""
+    _k4_check("direct", *_k4_direct_case(dev, nfft, stride, m_synch))
+
+
+@K4_FFT_SIZES
+def test_k4_peaks_fft_route_at_every_size(dev, nfft, m_synch):
+    """The FFT kernel's peaks form == its surface's max(-1) at every size
+    (the row's (value, index) reduction within a warp up to nfft 128,
+    across warps above); frame 0, all zero, ties at every delay: peak 0,
+    delay 0."""
+    _, peak, delay = _k4_peaks_check("fft", *_k4_fft_case(dev, nfft,
+                                                          m_synch))
+    assert not bool(peak[0].any()) and not bool(delay[0].any())
+
+
+@K4_DIRECT_SHAPES
+def test_k4_peaks_direct_route(dev, nfft, stride, m_synch):
+    """The direct kernel's peaks form == its surface's max(-1) at the
+    surface test's shapes: cp + 1 > 17 at nfft 96, 128, 256 and 1024, where
+    one block walks 2 to 16 delay tiles (the surface form takes one tile a
+    block); frame 0 all zero: peak 0, delay 0."""
+    _, peak, delay = _k4_peaks_check("direct", *_k4_direct_case(
+        dev, nfft, stride, m_synch))
+    assert not bool(peak[0].any()) and not bool(delay[0].any())
+
+
+@pytest.mark.parametrize("kind,nfft,stride", [
+    ("direct", 64, 1), ("direct", 128, 1), ("fft", 128, 31)])
+def test_k4_peaks_planted_delay_tie(dev, kind, nfft, stride):
+    """A ZC sequence zero off the synch bins that are multiples of 4 makes
+    K_d repeat with period nfft / 4 = cp: delays 0 and cp of a trial take
+    equal values, and where they are the trial's peak the peaks form gives
+    delay 0, as max(-1) does.  At nfft 128 delay cp = 32 lies in the
+    direct kernel's second delay tile."""
+    cfg = _k4_cfg(nfft, stride)
+    bins = np.asarray(used_bins(cfg.nfft, cfg.num_synch_bins)[1])
+    zc = zc_for_config(cfg) * (bins % 4 == 0)
+    n_trials = 4000 // stride
+    x = _cplx(dev, 44, 2, cfg.cp_len + n_trials * stride + cfg.rx_b_len)
+    surface, peak, delay = _k4_peaks_check(kind, cfg, x, n_trials, zc=zc)
+    cp = cfg.cp_len
+    tie = (surface[..., 0] == surface[..., cp]) & (surface[..., 0] == peak)
+    assert bool(tie.any())
+    assert not bool(delay[tie].any())
 
 
 def test_k4_wrapper_follows_the_rule(dev):
@@ -310,6 +389,70 @@ def test_k4_wrapper_follows_the_rule(dev):
         sync_search.sync_corr_abs(big, _cplx(dev, 42, 1, 70000), 2)
     assert sync_search.route_launches == {**before,
                                           "direct": before["direct"] + 1}
+
+
+def test_chain_batch_searches_in_the_peaks_form(dev):
+    """One GOLDEN64 ``chain_batch`` step launches K4 once, on the direct
+    route, in the peaks form: the [B, trials, 17] surface is never
+    written."""
+    cfg = GOLDEN64
+    n_samples = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n_samples)
+    bits, _ = _frames(cfg, dev, 4, seed=9)
+    kernels.reset_launch_counts()
+    r = chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
+                          num_patterns, bits,
+                          noise=_cplx(dev, 10, 4, n_samples))
+    assert kernels.launch_counts()["sync_search"] == 1
+    assert sync_search.route_launches == {"fft": 0, "direct": 1}
+    assert sync_search.peak_launches == {"fft": 0, "direct": 1}
+    assert bool(r.found.all()) and float(r.ber.max()) == 0.0
+
+
+def _bitwise(t):
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("cfg,batch", [(GOLDEN64, 512), (LTE2048, 32)],
+                         ids=["golden64-b512", "lte2048-b32"])
+@pytest.mark.parametrize("snr_db", [6.0, 24.0])
+def test_chain_batch_peaks_form_as_surface_lock(dev, monkeypatch, cfg, batch,
+                                                snr_db):
+    """``chain_batch`` on K4's peaks form == ``chain_batch`` with the search
+    on the surface form reduced by ``max(-1)`` (the lock the path took
+    before the peaks form), every output field bit for bit, at the link
+    cells' shapes: each decision of the peaks path is the surface's."""
+    cfg = dataclasses.replace(cfg, snr_db=snr_db).validate()
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+    g = torch.Generator(device=dev).manual_seed(1234)
+    bits = torch.randint(0, 2, (batch, cfg.num_bits), generator=g,
+                         device=dev, dtype=torch.int32)
+    ri = torch.randn((2, batch, n), generator=g, device=dev)
+    noise = torch.complex(ri[0], ri[1])
+
+    def step():
+        return chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
+                                 num_patterns, bits, noise=noise)
+
+    def surface_peaks(cfg, x, n_trials, zc=None):
+        peak, delay = sync_search.sync_corr_abs(cfg, x, n_trials, zc).max(-1)
+        return peak, delay.to(torch.int32)
+
+    kernels.reset_launch_counts()
+    r = step()
+    assert sync_search.peak_launches[sync_search.route(
+        cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch)] == 1
+    monkeypatch.setattr(sync_search, "sync_peaks", surface_peaks)
+    kernels.reset_launch_counts()
+    s = step()
+    assert sync_search.peak_launches == {"fft": 0, "direct": 0}
+    for field in r._fields:
+        a, b = getattr(r, field), getattr(s, field)
+        assert a.shape == b.shape and torch.equal(_bitwise(a),
+                                                  _bitwise(b)), field
 
 
 def test_chain_batch_through_kernels(dev):

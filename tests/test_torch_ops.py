@@ -138,8 +138,9 @@ def test_sync_spectra_and_correlations_match_jax():
             np.testing.assert_allclose(out.numpy(), ref, atol=2e-4)
 
 
-def test_first_lock_matches_jax():
-    cfg = G24
+def _lock_cases(cfg):
+    """Surfaces [40, 17] for the lock: seeded values, all zero, and a
+    delay tie above the gate with a value on the gate before it."""
     rng = np.random.default_rng(6)
     gate = cfg.detection_gate * cfg.m_synch * cfg.num_synch_bins
     cases = [rng.uniform(0, 50, (40, 17)).astype(np.float32),
@@ -148,15 +149,80 @@ def test_first_lock_matches_jax():
     tie[9, [3, 5]] = tie[12, 1] = np.float32(gate) + 1.0   # delay tie
     tie[8, 2] = np.float32(gate)                           # not above gate
     cases.append(tie)
+    return cases
+
+
+def _planted_ties(cfg):
+    """More surfaces with equal values: across the delays of one trial
+    (the lock's, one before it, and every delay of a trial), across trials
+    (equal peaks, above and below the gate), and both at once."""
+    gate = np.float32(cfg.detection_gate * cfg.m_synch * cfg.num_synch_bins)
+    rng = np.random.default_rng(16)
+    delays = rng.uniform(0, 1, (40, 17)).astype(np.float32)
+    delays[4, [16, 2, 9]] = gate + 2.0          # lock at trial 4, delay 2
+    delays[3, [0, 1]] = gate                    # on the gate: not a lock
+    delays[30, :] = gate + 5.0                  # every delay equal
+    trials = np.zeros((40, 17), np.float32)
+    trials[[6, 7, 21], 11] = gate + 3.0         # equal peaks, lock at 6
+    trials[[2, 5], 4] = gate - 1.0              # equal and below the gate
+    both = np.full((40, 17), gate + 1.0, np.float32)   # every value equal
+    return {"delays": delays, "trials": trials, "both": both}
+
+
+def _assert_lock_matches_jax(cfg, corr, out):
+    ref = [np.asarray(a) for a in jsync.first_lock(cfg, jnp.asarray(corr))]
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.numpy(), r)
+
+
+def test_first_lock_matches_jax():
+    cfg = G24
+    cases = _lock_cases(cfg)
     for corr in cases:
-        ref = [np.asarray(a) for a in jsync.first_lock(cfg,
-                                                       jnp.asarray(corr))]
-        out = [a.numpy() for a in sync.first_lock(port_cfg(cfg), _t(corr))]
-        for r, o in zip(ref, out):
-            np.testing.assert_array_equal(o, r)
+        _assert_lock_matches_jax(cfg, corr,
+                                 sync.first_lock(port_cfg(cfg), _t(corr)))
     batched = sync.first_lock(port_cfg(cfg), _t(np.stack(cases)))
     assert batched[0].tolist() == [sync.first_lock(port_cfg(cfg), _t(c))[0]
                                    for c in cases]
+
+
+@pytest.mark.parametrize("case", ["seeded", "zeros", "gate_tie", "delays",
+                                  "trials", "both"])
+def test_lock_from_peaks_matches_jax(case):
+    """The lock from each trial's (peak, delay), the surface's one max(-1),
+    equals the JAX package's first_lock on the surface: ties across delays
+    go to the lowest delay, across trials to the first crossing."""
+    cfg = G24
+    cases = dict(zip(("seeded", "zeros", "gate_tie"), _lock_cases(cfg)),
+                 **_planted_ties(cfg))
+    corr = cases[case]
+    peak, delay = _t(corr).max(-1)
+    _assert_lock_matches_jax(cfg, corr, sync.lock_from_peaks(
+        port_cfg(cfg), peak, delay.to(torch.int32)))
+    _assert_lock_matches_jax(cfg, corr,
+                             sync.first_lock(port_cfg(cfg), _t(corr)))
+
+
+@pytest.mark.parametrize("batch", [None, 1, 3])
+def test_sync_peaks_on_cpu_is_the_twins_max(batch):
+    """On a CPU tensor K4's peaks form is the plain twin's surface reduced
+    by max(-1), the delay as int32, with no launch counted."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+
+    cfg = port_cfg(G24)
+    x, _ = rx_buffer(G24, seed=17, snr_db=10.0)
+    n_trials, _ = jrx.plan_rx(G24, len(x))
+    xt = _t(x) if batch is None else _t(np.stack(
+        [np.roll(x, 5 * i) for i in range(batch)]))
+    kernels.reset_launch_counts()
+    peak, delay = sync_search.sync_peaks(cfg, xt, n_trials)
+    want, at = sync_search.sync_corr_abs_plain(cfg, xt, n_trials).max(-1)
+    assert delay.dtype == torch.int32 and peak.dtype == torch.float32
+    assert peak.shape == delay.shape == xt.shape[:-1] + (n_trials,)
+    assert torch.equal(peak, want) and torch.equal(delay.long(), at)
+    assert kernels.launch_counts()["sync_search"] == 0
+    assert sync_search.peak_launches == {"fft": 0, "direct": 0}
 
 
 def test_estimate_channel_and_mmse_match_jax():

@@ -30,7 +30,7 @@ from lte_gnu_radio_code_tpu_torch.parallel import chain as pchain
 from lte_gnu_radio_code_tpu_torch.parallel import mesh as pmesh
 from lte_gnu_radio_code_tpu_torch.parallel import sharded, streaming
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
-from torch_parity import port_cfg
+from torch_parity import port_cfg, recorded_launch
 
 CFG = jparams.GOLDEN64
 PCFG = port_cfg(CFG)
@@ -360,8 +360,7 @@ def _record_launches(monkeypatch):
 
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", Library)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda name, dev, *args: calls.append((name, args)))
+    monkeypatch.setattr(_cuda, "launch", recorded_launch(calls))
     return calls
 
 

@@ -15,7 +15,7 @@ from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
 from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import _cuda
 from lte_gnu_radio_code_tpu_torch.models import rxofdm, split
-from torch_parity import port_cfg, reduced, rx_buffer
+from torch_parity import port_cfg, recorded_launch, reduced, rx_buffer
 
 S31 = reduced(GOLDEN64, nfft=128, cp_len=32, num_synch_bins=126,
               num_data_bins=120, num_ofdm_symb=24, stride=31)
@@ -95,8 +95,7 @@ def test_split_kernel_path_launches_k4_then_k2(monkeypatch):
 
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", Library)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda name, dev, *args: calls.append((name, args)))
+    monkeypatch.setattr(_cuda, "launch", recorded_launch(calls))
     cfg = GOLDEN64
     rx, _ = rx_buffer(cfg, 22)
     f1, f2 = split.make_split_rx(port_cfg(cfg), len(rx), device="cpu",

@@ -25,7 +25,7 @@ from lte_gnu_radio_code_tpu_torch.kernels import _cuda
 from lte_gnu_radio_code_tpu_torch.models import stream_rx
 from lte_gnu_radio_code_tpu_torch.ops import sync
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
-from torch_parity import port_cfg, reduced
+from torch_parity import port_cfg, recorded_launch, reduced
 
 CFG = GOLDEN64
 PCFG = port_cfg(CFG)
@@ -673,8 +673,7 @@ def _record_launches(monkeypatch):
 
     monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
     monkeypatch.setattr(_cuda, "library", Library)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda name, dev, *args: calls.append((name, args)))
+    monkeypatch.setattr(_cuda, "launch", recorded_launch(calls))
     return calls
 
 

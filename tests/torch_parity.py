@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: configuration conversion and seeded inputs."""
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -16,6 +17,18 @@ def port_cfg(cfg):
 
 def reduced(cfg, **changes):
     return dataclasses.replace(cfg, **changes).validate()
+
+
+def recorded_launch(calls):
+    """A stand-in for ``kernels/_cuda.py:launch`` on CPU tensors: appends
+    (entry point, arguments) to calls and runs nothing, except that K4's
+    peaks form (its last argument, the delay buffer, not null) gets delay 0
+    for every trial, since its caller reads that output as indices."""
+    def launch(name, dev, *args):
+        calls.append((name, args))
+        if name.startswith("sync_search") and args[-1]:
+            ctypes.memset(args[-1], 0, args[1] * args[6] * 4)
+    return launch
 
 
 def rx_buffer(cfg, seed, snr_db=None):
