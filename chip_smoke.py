@@ -60,7 +60,10 @@ an 8-frame LTE1024 stream, chunks of 1024 strides (the block route):
 chunked == whole buffer, ``push_many`` == pushes, one launch a chunk step
 on the rule's route, no host synchronisation in a chunk step, and the
 tracker kernel and K2 held to their plain versions on a chunk step's
-inputs.
+inputs.  ``tracker_cell_run``: ``BatchTrackerStreamingRx`` at the
+l1k-track cell's shape (16 10 MHz LTE streams, chunks of 131,072): every
+detection on the block grid with the sent bits, and the scan of a tracking
+chunk step == the plain twin, timed from a cold and a warm L2.
 
 Then the 2x2 paths.  ``mimo_run``: ``make_mimo_chain`` (SpMult) and
 ``make_stcode_chain`` (Alamouti) at tests/test_mimo.py's configuration,
@@ -131,8 +134,9 @@ surface form alone and with that reduction, against its bound.
 of their main path to the peaks form.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--tracker-block``: the block route's LTE1024 and LTE2048 paths alone;
-a copy of the script in a parent commit's tree times that tree's kernel.
+(``--tracker-block``: the block route's LTE1024 and LTE2048 paths and the
+l1k-track cell's receiver alone; a copy of the script in a parent commit's
+tree times that tree's kernel.
 ``--cards [gloo|nccl]``: ``cards_run`` alone.)
 Exits non-zero, printing no result, without a CUDA device or outside the
 repository.  The last line is {"ok": true, "device": {...}}.
@@ -215,8 +219,12 @@ TRACKER_FILL_PER_SM = 8       # streams on each SM in the card-filling batch
                               # block route, 256 threads a stream: 2048 an SM)
 # one tracker stream each: config, frames, chunk in strides, and the frame
 # whose start + 37 samples gets TRACKER_GAP zero samples (None: no gap)
-TRACKER_STREAMS = (("GOLDEN64", 16, 2400, 2),   # 2: before the float32 fit
-                   ("LTE1024", 8, 1024, None))  # loses the cadence (PERF.md)
+TRACKER_STREAMS = (("GOLDEN64", 16, 2400, 2),
+                   ("LTE1024", 8, 1024, None))
+# the l1k-track cell's receiver: 10 MHz LTE (600 data bins) at 20 dB, the
+# streams, the chunk and the chunk steps run before the one timed
+TRACKER_CELL = (dict(num_data_bins=600, channel_band=9e6, snr_db=20.0), 16,
+                131072, 4)
 TRACKER_GAP = 3               # zero samples inserted into the stream
 CHASE_BYTES = 4 << 20         # pointer-chase ring: in the L2, beyond the L1
 CHASE_STEPS = 1 << 14
@@ -2029,10 +2037,9 @@ def tracker_stream_run(name, frames, chunk_strides, gap_frame, dev, gpu,
     before and its bits == the sent bits, no host synchronisation in a
     chunk step; its Msamples/s; the tracker kernel and K2 held to their
     plain versions on a chunk step's inputs (:func:`tracker_stream_kernels`).
-    At GOLDEN64 the gap lies before the detection (~417) where the
-    reference's float32 least-squares fit, in the JAX package as here,
-    loses the cadence of a continuous stream; the detections after that
-    are printed, not gated.  Returns the ``kernels`` entries."""
+    The detections after the gap are printed, not gated: the tracker
+    re-adjusts there as the reference does.  Returns the ``kernels``
+    entries."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
     from lte_gnu_radio_code_tpu_torch.models import tracker
@@ -2163,6 +2170,94 @@ def tracker_stream_kernels(cfg, kind, make, chunks, counts, cell,
     return [tracker_entry(name, cell, counts["tracker"], err, ms, plain_ms,
                           bound_ms, bound_by, steps, chain, load_ms),
             kernel_entry("equalize", cell, counts["equalize"], k2)]
+
+
+def tracker_cell_run(dev, gpu, load_ms) -> list:
+    """``BatchTrackerStreamingRx`` at the l1k-track cell's shape
+    (TRACKER_CELL): 16 continuous 10 MHz LTE streams made on the card,
+    pushed in chunks of 131,072: one tracker and one K2 launch a chunk step
+    on the block route, every detection one pattern block after the one
+    before it in its stream, the first steps' bits == the sent bits; then
+    on the next chunk step's inputs (a tracking carry) the kernel ==
+    ``track_scan_plain`` (:func:`tracker_check`), its time from a cold and
+    a warm L2, the chunk step's (push, median of three), the bound of
+    what the data needs (``tracker_work``) and K2 against its plain
+    version.  Returns both ``kernels`` entries."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    changes, batch, chunk, k = TRACKER_CELL
+    cfg = config_of("LTE1024", changes)
+    cell = f"l1k-track tracker stream b{batch}"
+    streams, bits = make_streams(cfg, batch, (k + 1) * chunk, dev)
+    chunks = streams.reshape(batch, k + 1, chunk).transpose(0, 1).contiguous()
+    rx = rt.BatchTrackerStreamingRx(cfg, chunk, batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = stack_outs([rx.push(c) for c in chunks[:k]])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {**dict.fromkeys(kernels.KERNEL_MODULES, 0), "tracker": k,
+            "equalize": k}
+    if counts != want or ktrk.route(cfg) != "block":
+        raise AssertionError(f"{cell}: launches {counts}, expected {want}")
+    block = cfg.pattern_len * cfg.rx_b_len
+    nd_bits = cfg.synch_dat[1] * cfg.num_data_bins * 2
+    found = 0
+    for b in range(batch):
+        v = outs.valid[:, b].reshape(-1)
+        bound_ = (outs.ptrs + outs.delays)[:, b].reshape(-1)[v]
+        steps_ = torch.diff(bound_)
+        hard = outs.hard_bits[:, b].reshape(len(v), -1)[v].reshape(-1)
+        sent = bits[b].reshape(-1)[:len(hard)]
+        if (steps_ != block).any() or not torch.equal(hard[:len(sent)], sent):
+            raise AssertionError(f"{cell}: stream {b}: {len(bound_)} "
+                                 "detections, off the block grid or bits "
+                                 "that differ from the sent ones")
+        found += len(bound_)
+    with kernel_inputs() as seen:
+        state = rx.state
+        rx.push(chunks[k])
+    x, x_start, limit, carry, steps, max_det = seen["tracker"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ktrk.track_scan_plain(cfg, x, x_start, limit, carry, steps, max_det)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = tracker_check(cfg, x, steps, max_det, "block", ref, cell, x_start,
+                        limit, carry)
+    run = lambda: ktrk._launch("block", cfg, x, x_start, limit, carry, steps,
+                               max_det)
+    cold = event_ms(run, 5)
+    ms = event_ms(run, 5, evict=False)
+    computed, nbytes, ops = tracker_work(cfg, x, ref, x_start, carry)
+    bound_ms, bound_by = bound(nbytes, ops)
+    chain = int(computed.max())
+
+    def push():
+        rx.state = state
+        rx.push(chunks[k])
+
+    step_ms, rounds = call_ms(push)
+    print(f"{cell}: {k} chunk steps, launches {counts}, {found} detections "
+          f"on the block grid with the sent bits; chunk step {k}'s scan "
+          f"({steps} steps over {x.shape[1]} samples a stream, {chain} "
+          f"computed by the slowest stream, {int(computed.sum())} in all) "
+          f"== track_scan_plain (floats within {err:.2e}); the block route "
+          f"{cold:.4f} ms from a cold L2, {ms:.4f} warm, "
+          f"{ms * 1e3 / chain:.3f} us a computed step; plain loop eager "
+          f"{plain_ms:.1f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+          f"({nbytes} bytes, {ops:.3e} operations), share "
+          f"{bound_ms / cold:.5f}; {chain} dependent L2 loads "
+          f"{chain * load_ms:.4f} ms; the chunk step (push) {step_ms:.3f} ms "
+          f"(rounds {', '.join(f'{t:.3f}' for t in rounds)}) on {gpu}")
+    k2 = path_checks(cfg, seen, cell)["equalize"]
+    entry = tracker_entry("tracker_scan", cell, counts["tracker"], err, cold,
+                          plain_ms, bound_ms, bound_by, steps, chain, load_ms)
+    entry.update({"warm_ms": ms, "step_ms": step_ms})
+    return [entry, kernel_entry("equalize", cell, counts["equalize"], k2)]
 
 
 def file_check(dev) -> None:
@@ -3937,6 +4032,7 @@ def main() -> int:
     entries += tracker_fill_run(dev, gpu, load_ms)
     for args in TRACKER_STREAMS:
         entries += tracker_stream_run(*args, dev, gpu, load_ms)
+    entries += tracker_cell_run(dev, gpu, load_ms)
     for name, sdr_profile, batch in MIMO_CELLS:
         entries += mimo_run(name, sdr_profile, batch, dev, gpu)
     pls_run(dev, gpu)
@@ -3979,10 +4075,11 @@ def cards_main(backends) -> int:
 
 def tracker_block_main() -> int:
     """``--tracker-block``: the block route's main paths alone
-    (TRACKER_LTE), with their gates, times and ``kernels`` entries.  A copy
-    of this script in another commit's tree times that tree's kernel on
-    the same inputs: the way to compare a change to the tracker's kernel
-    with its parent in one call (parent, change, change, parent)."""
+    (TRACKER_LTE) and the l1k-track cell's receiver (TRACKER_CELL), with
+    their gates, times and ``kernels`` entries.  A copy of this script in
+    another commit's tree times that tree's kernel on the same inputs: the
+    way to compare a change to the tracker's kernel with its parent in one
+    call (parent, change, change, parent)."""
     if (started := start()) is None:
         return 1
     dev, gpu = started
@@ -3990,6 +4087,7 @@ def tracker_block_main() -> int:
     entries = []
     for c in TRACKER_LTE:
         entries += tracker_block_run(*c, dev, gpu, load_ms)
+    entries += tracker_cell_run(dev, gpu, load_ms)
     print(json.dumps({"kernels": entries}))
     return 0
 

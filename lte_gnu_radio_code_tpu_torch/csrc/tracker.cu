@@ -75,13 +75,14 @@
 // x_start and fire_limit are read from and written to device memory, so a
 // chunk step of the streaming receiver needs nothing from the host.
 //
-// The pointer prediction ceil(b0 + b1 x - cp/4) is an integer with no drift,
-// so float noise in b flips it by one.  The fit and the prediction round as
-// the plain step (models/tracker.py:_masked_lstsq) and the JAX package's
-// CPU build do: sums in the order ((((v0 + v1) + v2) + v3) + v4), and a
-// product contracted into the addition after it, in the sums of products
-// too (XLA's CPU backend fuses those), written out as __fadd_rn /
-// __fmul_rn / __fmaf_rn / __fdiv_rn so that nvcc contracts nothing else.
+// The pointer prediction ceil(fit - cp/4) is exact on an unbounded stream,
+// as the plain step's (models/tracker.py, module docstring): the history is
+// int32 (hx = sym_count * pattern, hy = ptr + delay, global), the fit runs
+// in float32 on differences from the newest entry, whose sums and products
+// of sums are integers below 2^24, and the prediction is the newest entry's
+// y plus ceil(b0 - cp/4), b0 the fitted value at the next entry's x less
+// that y.  Only the two quotients round, once each (__fdiv_rn), as in the
+// plain step, so both routes equal it bit for bit.
 //
 // The wrapper (kernels/tracker.py) checks the shapes; an nfft neither
 // kernel was built for returns cudaErrorInvalidValue.
@@ -106,9 +107,9 @@ struct Carry {                 // the nine leaves, one row a stream
   int* ptr_adj;
   int* sym_count;
   int* last_ptr;
-  float* hx;                   // [B, 5]
-  float* hy;                   // [B, 5]
-  float* b;                    // [B, 2]
+  int* hx;                     // [B, 5] sym_count * pattern
+  int* hy;                     // [B, 5] ptr + delay, global
+  float* b;                    // [B, 2] the fit, as masked_lstsq leaves it
 };
 
 struct Params {
@@ -134,46 +135,53 @@ struct Params {
   float denom;                 // 1 + 1 / snr
 };
 
-__device__ __forceinline__ float fsum5(const float (&v)[kHist]) {
-  float s = v[0];
+// The least-squares line through the entries i < n_eff, on differences from
+// entry k (the newest): x in patterns, u_i = (hx_i - hx_k) / pattern, and y
+// in samples, v_i = hy_i - hy_k.  b0 = the line at u = 1 (the next entry),
+// b1 = its slope per unit of x; zero with fewer than two entries.  Every
+// sum and product below is an exact integer in float32; only the two
+// quotients round (models/tracker.py:_masked_lstsq).
+__device__ void masked_lstsq(const int (&hx)[kHist], const int (&hy)[kHist],
+                             int n_eff, int k, int pattern, float& b0,
+                             float& b1) {
+  int ax = 0, ay = 0;
 #pragma unroll
-  for (int i = 1; i < kHist; ++i) s = __fadd_rn(s, v[i]);
-  return s;
-}
-
-// sum_i a_i b_i, each product contracted into the running sum.
-__device__ __forceinline__ float fdot5(const float (&a)[kHist],
-                                       const float (&b)[kHist]) {
-  float s = 0.f;
+  for (int i = 0; i < kHist; ++i)
+    if (i == k) {
+      ax = hx[i];
+      ay = hy[i];
+    }
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, sy = 0.f, sxy = 0.f;
 #pragma unroll
-  for (int i = 0; i < kHist; ++i) s = __fmaf_rn(a[i], b[i], s);
-  return s;
-}
-
-// b = argmin sum_i w_i (b0 + b1 x_i - y_i)^2, w_i = (i < n_eff), in the
-// plain step's order and rounding.
-__device__ void masked_lstsq(const float (&hx)[kHist], const float (&hy)[kHist],
-                             int n_eff, float& b0, float& b1) {
-  float w[kHist], v1[kHist], vy[kHist];
-#pragma unroll
-  for (int i = 0; i < kHist; ++i) {
-    w[i] = i < n_eff ? 1.f : 0.f;
-    v1[i] = __fmul_rn(w[i], hx[i]);
-    vy[i] = __fmul_rn(w[i], hy[i]);
+  for (int i = 0; i < kHist; ++i)
+    if (i < n_eff) {
+      const float u = (float)((hx[i] - ax) / pattern);
+      const float v = (float)(hy[i] - ay);
+      s0 = __fadd_rn(s0, 1.f);
+      s1 = __fadd_rn(s1, u);
+      s2 = __fadd_rn(s2, __fmul_rn(u, u));
+      sy = __fadd_rn(sy, v);
+      sxy = __fadd_rn(sxy, __fmul_rn(u, v));
+    }
+  const float det = __fsub_rn(__fmul_rn(s0, s2), __fmul_rn(s1, s1));
+  const float num1 = __fsub_rn(__fmul_rn(s0, sxy), __fmul_rn(s1, sy));
+  if (det > 0.f) {
+    b0 = __fdiv_rn(__fadd_rn(__fsub_rn(__fmul_rn(s2, sy), __fmul_rn(s1, sxy)),
+                             num1),
+                   det);
+    b1 = __fdiv_rn(num1, __fmul_rn(det, (float)pattern));
+  } else {
+    b0 = 0.f;
+    b1 = 0.f;
   }
-  const float s0 = fsum5(w), s1 = fsum5(v1), s2 = fdot5(v1, hx),
-              sy = fsum5(vy), sxy = fdot5(v1, hy);
-  const float det = __fmaf_rn(s0, s2, -__fmul_rn(s1, s1));
-  const bool safe = fabsf(det) > 1e-9f;
-  b1 = safe ? __fdiv_rn(__fmaf_rn(s0, sxy, -__fmul_rn(s1, sy)), det) : 0.f;
-  b0 = s0 > 0.f ? __fdiv_rn(__fmaf_rn(-b1, s1, sy), fmaxf(s0, 1.f)) : 0.f;
 }
 
 // One stream's carry and the step's state machine (models/tracker.py:
 // make_tracker_step), the same on both routes.
 struct State {
   int lc, co, pf, pa, sc, lp;
-  float hx[kHist], hy[kHist], b0, b1;
+  int hx[kHist], hy[kHist];
+  float b0, b1;
 
   __device__ void load(const Carry& c, int s) {
     lc = c.loop_count[s];
@@ -209,9 +217,12 @@ struct State {
 
   // this step's pointer: search by stride, nominal advance, or prediction
   __device__ int pointer(const Params& p, int rx_b_len) const {
-    const float xh = (float)(sc * p.pattern);
-    const int pred =
-        (int)ceilf(__fsub_rn(__fmaf_rn(b1, xh, b0), 0.25f * p.cp));
+    const int k = (sc + kHist - 1) % kHist;          // the newest entry
+    int ay = 0;
+#pragma unroll
+    for (int i = 0; i < kHist; ++i)
+      if (i == k) ay = hy[i];
+    const int pred = ay + (int)ceilf(__fsub_rn(b0, 0.25f * p.cp));
     return co == -1 ? lc * p.stride + (p.cp - 5) + pa
                     : (co < 5 ? pf + p.pattern * rx_b_len : pred);
   }
@@ -238,10 +249,11 @@ struct State {
 #pragma unroll
       for (int i = 0; i < kHist; ++i)
         if (i == k) {
-          hx[i] = (float)(sc * p.pattern);
-          hy[i] = (float)(ptr + dind);
+          hx[i] = sc * p.pattern;
+          hy[i] = ptr + dind;
         }
-      if (co1 > 3) masked_lstsq(hx, hy, co1 < kHist ? co1 : kHist, b0, b1);
+      if (co1 > 3)
+        masked_lstsq(hx, hy, co1 < kHist ? co1 : kHist, k, p.pattern, b0, b1);
     }
     lc = fire ? lc + 1 : lc;
     co = co1;
@@ -703,7 +715,7 @@ tracker_scan_kernel(const Params p) {
 
 Carry carry_of(void* const* f) {
   return Carry{(int*)f[0], (int*)f[1], (int*)f[2], (int*)f[3], (int*)f[4],
-               (int*)f[5], (float*)f[6], (float*)f[7], (float*)f[8]};
+               (int*)f[5], (int*)f[6], (int*)f[7], (float*)f[8]};
 }
 
 }  // namespace

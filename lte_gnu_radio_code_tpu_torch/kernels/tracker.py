@@ -61,8 +61,8 @@ WARP_MAX_NFFT = 128   # the warp route's largest nfft: 4 points a lane
 WARPS = 4             # streams a block on the warp route (tracker.cu:kStreams)
 ENTRY = {"warp": "tracker_scan_warp", "block": "tracker_scan"}
 # the carry fields' dtypes and per-stream shapes (models/tracker.py)
-CARRY = (*((torch.int32, ()),) * 6, (torch.float32, (5,)),
-         (torch.float32, (5,)), (torch.float32, (2,)))
+CARRY = (*((torch.int32, ()),) * 6, (torch.int32, (5,)),
+         (torch.int32, (5,)), (torch.float32, (2,)))
 
 
 def smem_bytes(cfg: OFDMConfig, kind: str) -> int:

@@ -28,19 +28,29 @@ the data derotated by delay + 1.
 Every function takes a leading stream axis: x [B, n] and every carry field
 [B, ...] (``track_frame`` also takes one buffer [n]).  A step keeps static
 shapes, makes every branch a ``torch.where`` and waits for nothing on the
-host.  ``ceil()`` of the float32 prediction decides a pointer, and with no
-drift the prediction is an integer, so :func:`_masked_lstsq` and the
-prediction round as the JAX package's CPU build does: the five terms of a
-sum added in one fixed order, and a product contracted into the addition
-after it, the sums of products included, as XLA's CPU backend emits them
-(:func:`_fma32`, :func:`_dot`; the kernel calls ``__fmaf_rn`` at the same
-places).
+host.
+
+The fit is exact on an unbounded stream.  ``ceil()`` of the prediction
+decides a pointer, and a pointer is a global sample index, past 2^24 (the
+last integer float32 holds) after 1.1 s of a 15.36 Msps stream; the JAX
+package keeps the history as float32 global indices and fits on them, and
+loses the block cadence there.  Here the history is int32 (``hx`` the
+entry's sym_count * pattern, ``hy`` its symbol boundary ptr + delay), and
+:func:`_masked_lstsq` fits in float32 on differences from the newest entry:
+x in patterns (0 to -4), y in samples (four patterns at most), so every sum
+and every product of two sums is an integer below 2^24, exact.  The fitted
+value at the next entry's x is their quotient (one rounding), and
+ceil(quotient - cp/4) is the exact ceiling: the true value is a multiple of
+1 / (4 det), det <= 50, so it is an integer (which float32 holds) or lies
+farther from one than the rounding moves it.  The int32 anchor, the
+newest entry's y, is added after the ceil.  The CUDA kernel computes the
+same operations, which are exact, so both routes equal the plain step bit
+for bit.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -76,65 +86,53 @@ class TrackerCarry(NamedTuple):
     ptr_adj: torch.Tensor     # [B] int32
     sym_count: torch.Tensor   # [B] int32
     last_ptr: torch.Tensor    # [B] int32
-    hx: torch.Tensor          # [B, 5] float32
-    hy: torch.Tensor          # [B, 5] float32
-    b: torch.Tensor           # [B, 2] float32
+    hx: torch.Tensor          # [B, 5] int32: an entry's sym_count * pattern
+    hy: torch.Tensor          # [B, 5] int32: its ptr + delay (global)
+    b: torch.Tensor           # [B, 2] float32: the fit (_masked_lstsq)
 
 
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c with a single rounding.  The product of two float32
-    is exact in float64; the sum is rounded to odd there (TwoSum gives its
-    exact error), so that the one rounding to float32 after it is the
-    correct one."""
-    p = a.double() * b.double()
-    c = c.double().expand_as(p)
-    s = p + c
-    t = s - p
-    err = (p - (s - t)) + (c - t)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
-    return torch.where((err != 0) & even, torch.nextafter(s, toward),
-                       s).float()
+def _masked_lstsq(hx: torch.Tensor, hy: torch.Tensor, n_eff: torch.Tensor,
+                  newest: torch.Tensor, pattern: int) -> torch.Tensor:
+    """The least-squares line b0 + b1 x through the history entries i <
+    n_eff (hx, hy [..., 5] int32, n_eff [...]), relative to entry
+    ``newest`` ([...]: the one just written, whose x is the largest):
+    returns [..., 2] float32, b[0] = the line at the next entry's x (the
+    newest's + pattern) less the newest's y, b[1] its slope in samples per
+    unit of x.  Zero where fewer than two entries count.
 
-
-def _total(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis as ((((v0 + v1) + v2) + v3) + v4): the order
-    ``csrc/tracker.cu`` uses too."""
-    s = v[..., 0]
-    for i in range(1, v.shape[-1]):
-        s = s + v[..., i]
-    return s
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_i a_i b_i over the last axis with each product contracted into
-    the running sum, fma(a_i, b_i, s) from s = 0 in order, as XLA's CPU
-    backend emits a reduction of a product (and ``csrc/tracker.cu``)."""
-    s = torch.zeros_like(a[..., 0])
-    for i in range(a.shape[-1]):
-        s = _fma32(a[..., i], b[..., i], s)
-    return s
-
-
-def _masked_lstsq(hx: torch.Tensor, hy: torch.Tensor,
-                  n_eff: torch.Tensor) -> torch.Tensor:
-    """Weighted closed form b = argmin sum_i w_i (b0 + b1 x_i - y_i)^2, w_i
-    = (i < n_eff): hx, hy [..., 5], n_eff [...] -> [..., 2] float32."""
+    In float32 on differences from the newest entry, x in patterns: u_i =
+    (hx_i - hx_newest) / pattern in [-4, 0], v_i = hy_i - hy_newest.  The
+    sums and the products of two sums are integers below 2^24 (module
+    docstring), so b[0] = (s2 sy - s1 sxy + s0 sxy - s1 sy) / det has one
+    rounding, b[1] = (s0 sxy - s1 sy) / (det pattern) one."""
     idx = torch.arange(hx.shape[-1], device=hx.device)
-    w = (idx < n_eff[..., None]).to(torch.float32)
-    s0 = _total(w)
-    s1 = _total(w * hx)
-    s2 = _dot(w * hx, hx)
-    sy = _total(w * hy)
-    sxy = _dot(w * hx, hy)
-    det = _fma32(s0, s2, -(s1 * s1))
-    safe = det.abs() > 1e-9
-    b1 = torch.where(safe, _fma32(s0, sxy, -(s1 * sy)) /
-                     torch.where(safe, det, torch.ones_like(det)),
-                     torch.zeros_like(det))
-    b0 = torch.where(s0 > 0, _fma32(-b1, s1, sy) / s0.clamp_min(1.0),
-                     torch.zeros_like(s0))
-    return torch.stack([b0, b1], -1)
+    w = idx < n_eff[..., None]
+    at = newest[..., None].to(torch.int64)
+    u = torch.where(w, torch.div(hx - hx.gather(-1, at), pattern,
+                                 rounding_mode="floor"), 0).to(torch.float32)
+    v = torch.where(w, hy - hy.gather(-1, at), 0).to(torch.float32)
+    s0 = w.to(torch.float32).sum(-1)
+    s1, s2 = u.sum(-1), (u * u).sum(-1)
+    sy, sxy = v.sum(-1), (u * v).sum(-1)
+    det = s0 * s2 - s1 * s1
+    num1 = s0 * sxy - s1 * sy
+    safe = det > 0
+    det = torch.where(safe, det, torch.ones_like(det))
+    b0 = (s2 * sy - s1 * sxy + num1) / det
+    b1 = num1 / (det * pattern)
+    zero = torch.zeros_like(det)
+    return torch.stack([torch.where(safe, b0, zero),
+                        torch.where(safe, b1, zero)], -1)
+
+
+def _predict(hy: torch.Tensor, b: torch.Tensor, sym_count: torch.Tensor,
+             cp: int) -> torch.Tensor:
+    """The drift prediction ceil(fit at sym_count * pattern - cp/4), as an
+    int32 global pointer: the newest entry's y (slot (sym_count - 1) mod
+    5) plus ceil(b[0] - cp/4)."""
+    at = ((sym_count + HISTORY - 1) % HISTORY)[:, None].to(torch.int64)
+    return hy.gather(1, at)[:, 0] + torch.ceil(b[:, 0] - cp / 4.0).to(
+        torch.int32)
 
 
 def tracker_stride(cfg: OFDMConfig) -> int:
@@ -148,11 +146,12 @@ def tracker_init_carry(batch: int = 1, device=None) -> TrackerCarry:
     def i32(v):
         return torch.full((batch,), v, dtype=torch.int32, device=device)
 
-    def f32(k):
-        return torch.zeros(batch, k, dtype=torch.float32, device=device)
+    def zeros(k, dtype):
+        return torch.zeros(batch, k, dtype=dtype, device=device)
 
     return TrackerCarry(i32(0), i32(-1), i32(0), i32(0), i32(0), i32(0),
-                        f32(HISTORY), f32(HISTORY), f32(2))
+                        zeros(HISTORY, torch.int32),
+                        zeros(HISTORY, torch.int32), zeros(2, torch.float32))
 
 
 @functools.lru_cache(maxsize=16)
@@ -233,13 +232,10 @@ def make_tracker_step(cfg: OFDMConfig, x: torch.Tensor, x_start,
     def step(carry: TrackerCarry):
         (loop_count, corr_obs, ptr_frame, ptr_adj, sym_count, last_ptr,
          hx, hy, b) = carry
-        x_hist = (sym_count * pattern).to(torch.float32)
-        ptr_pred = torch.ceil(_fma32(b[:, 1], x_hist, b[:, 0]) -
-                              cp / 4.0).to(torch.int32)
         ptr = torch.where(
             corr_obs == -1, loop_count * stride + start_samp + ptr_adj,
             torch.where(corr_obs < 5, ptr_frame + pattern * rx_b_len,
-                        ptr_pred))
+                        _predict(hy, b, sym_count, cp)))
 
         fire = (((m0 - 1) * rx_b_len + nfft + ptr < fire_limit) &
                 (ptr >= x_start))
@@ -259,14 +255,14 @@ def make_tracker_step(cfg: OFDMConfig, x: torch.Tensor, x_start,
         accept = enter & ((ptr - refr_ref > 2 * cp + nfft) | (corr_obs == -1))
 
         corr_obs1 = torch.where(accept, corr_obs + 1, corr_obs)
-        put = accept[:, None] & (slots == (sym_count % HISTORY)[:, None])
-        hx1 = torch.where(put, x_hist[:, None], hx)
-        hy1 = torch.where(put, (ptr + dmax_ind).to(torch.float32)[:, None],
-                          hy)
+        newest = sym_count % HISTORY
+        put = accept[:, None] & (slots == newest[:, None])
+        hx1 = torch.where(put, (sym_count * pattern)[:, None], hx)
+        hy1 = torch.where(put, (ptr + dmax_ind)[:, None], hy)
         sym_count1 = torch.where(accept, sym_count + 1, sym_count)
         n_eff = corr_obs1.clamp_max(HISTORY)
         b1 = torch.where((accept & (corr_obs1 > 3))[:, None],
-                         _masked_lstsq(hx1, hy1, n_eff), b)
+                         _masked_lstsq(hx1, hy1, n_eff, newest, pattern), b)
 
         # channel estimate on accept (:229-241)
         col = (dmax_ind + 1).clamp(0, cp).to(torch.int64)

@@ -16,7 +16,9 @@ receivers', so a checkpoint written by either package resumes in the
 other; and the streaming tracker (``tracker_lag``, ``TrackStreamState``,
 ``TrackChunkOut``, ``track_stream_init``, ``track_stream_step``,
 ``TrackerStreamingRx``, with ``push``, ``push_many`` and ``finish``; it has
-no checkpoints, as the JAX one has none).  The receivers serve every
+no checkpoints, as the JAX one has none), which here also serves many
+streams at once (``BatchTrackerStreamingRx``, whose B = 1 case
+``TrackerStreamingRx`` is).  The receivers serve every
 modulation the demap knows (``models/stream_rx.py:hard_decide``).
 
 A step keeps static shapes (fixed [det_max] / [kmax] tables with a
@@ -26,7 +28,7 @@ Python number on the way.  That is what lets a step be captured in a CUDA
 graph.  The batch receiver's step carries an explicit leading stream axis:
 one sync search (K4) and one demod (K2) launch a chunk step, however many
 streams there are.  The tracker's step is one launch of its step loop
-(``kernels/tracker.py``) and one of K2.
+(``kernels/tracker.py``) and one of K2, however many streams there are.
 
 The receivers run on the CUDA device unless the caller passes a ``device``
 (``"cpu"`` runs the kernels' plain versions); where there is no CUDA device
@@ -649,9 +651,12 @@ class LegacyStreamingRx(ReacqStreamingRx):
 # The tracker block carries its pointer state machine across work() calls:
 # search by stride, five nominal advances, then least-squares drift
 # prediction.  Here the batch tracker's step loop (kernels/tracker.py:
-# track_scan: one kernel launch a chunk on the card) runs over ext = [hist,
-# chunk] with the carry in the stream state; fire-or-stall steps make the
-# chunked run accept exactly the whole buffer's detections.
+# track_scan: one kernel launch a chunk step on the card, one warp or block
+# a stream) runs over ext = [hist, chunk] of every stream, with the carry
+# in the stream state; fire-or-stall steps make the chunked run accept
+# exactly the whole buffer's detections.  The fit is exact at any global
+# sample index below 2^31 (models/tracker.py), the int32 horizon of every
+# streaming receiver here: 140 s of a 15.36 Msps stream.
 
 
 def tracker_lag(cfg: OFDMConfig) -> int:
@@ -661,101 +666,143 @@ def tracker_lag(cfg: OFDMConfig) -> int:
 
 
 class TrackStreamState(NamedTuple):
-    hist: torch.Tensor          # [lag] trailing samples
-    base: torch.Tensor          # global index of the next chunk's start
-    real_end: torch.Tensor      # global count of real (non-flush) samples
-    carry: tuple                # models/tracker.py:TrackerCarry, B = 1
+    hist: torch.Tensor          # [B, lag] trailing samples
+    base: torch.Tensor          # [B] global index of the next chunk's start
+    real_end: torch.Tensor      # [B] global count of real (non-flush) samples
+    carry: tuple                # models/tracker.py:TrackerCarry, [B] rows
 
 
 class TrackChunkOut(NamedTuple):
-    ptrs: torch.Tensor          # [det_max] global detection pointers, or -1
-    delays: torch.Tensor        # [det_max]
-    peaks: torch.Tensor         # [det_max]
-    valid: torch.Tensor         # [det_max] bool
-    chans: torch.Tensor         # [det_max, nfft]
-    phasors: torch.Tensor       # [det_max, nd, num_data_bins]
-    hard_bits: torch.Tensor     # [det_max, nd, num_data_bins*bits_per_bin]
+    ptrs: torch.Tensor          # [..., det_max] global detection pointers, or -1
+    delays: torch.Tensor        # [..., det_max]
+    peaks: torch.Tensor         # [..., det_max]
+    valid: torch.Tensor         # [..., det_max] bool
+    chans: torch.Tensor         # [..., det_max, nfft]
+    phasors: torch.Tensor       # [..., det_max, nd, num_data_bins]
+    hard_bits: torch.Tensor     # [..., det_max, nd, num_data_bins*bits_per_bin]
 
 
-def track_stream_init(cfg: OFDMConfig, device=None) -> TrackStreamState:
+def track_stream_init(cfg: OFDMConfig, batch: int = 1,
+                      device=None) -> TrackStreamState:
+    """The empty carry of ``batch`` streams, each field with a leading
+    stream axis."""
     device = resolve_device(device)
-    i32 = functools.partial(_scalar, 0, torch.int32, device)
+    i32 = functools.partial(_scalar, 0, torch.int32, device, batch)
     return TrackStreamState(
-        hist=torch.zeros(tracker_lag(cfg), dtype=torch.complex64,
+        hist=torch.zeros(batch, tracker_lag(cfg), dtype=torch.complex64,
                          device=device),
         base=i32(), real_end=i32(),
-        carry=tracker.tracker_init_carry(1, device))
+        carry=tracker.tracker_init_carry(batch, device))
 
 
 def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
                       chunk: torch.Tensor, n_real, slots: int, det_max: int,
                       demod_path: str | None = None
                       ) -> tuple[TrackStreamState, TrackChunkOut]:
-    """One chunk of the streaming tracker (``stream.py:track_stream_step``):
-    ``slots`` tracker steps over ext = [hist, chunk] (one ``track_scan``:
-    one kernel launch on the card, which also returns the channel table
-    compacted), the accepted ones compacted into a [det_max] table, each
-    demodulated (``models/tracker.py:track_phasors``, K2 with
-    ``demod_path="kernel"``) and decided (``stream_rx.hard_decide``).  A step fires only where its
-    synch windows lie inside the real samples and its pattern's data span
-    inside ext, so a pointer that does not fit yet is retried next chunk.
-    Static shapes, the carry on the device, nothing waits for the host."""
+    """One chunk of B streaming trackers (``stream.py:track_stream_step``,
+    with a stream axis): chunk [B, chunk_len], ``n_real`` the chunk's real
+    samples (one number for all).  ``slots`` tracker steps over each
+    stream's ext = [hist, chunk] (one ``track_scan``: one kernel launch on
+    the card, which also returns the channel tables compacted), the
+    accepted ones compacted into a [B, det_max] table, each demodulated
+    (``models/tracker.py:track_phasors``: one K2 launch with
+    ``demod_path="kernel"``) and decided (``stream_rx.hard_decide``).  A
+    step fires only where its synch windows lie inside the real samples
+    and its pattern's data span inside ext, so a pointer that does not fit
+    yet is retried next chunk.  Static shapes, the carry on the device,
+    nothing waits for the host.
+
+    Spans ``ofdm.track``, ``ofdm.select``, ``ofdm.demod``,
+    ``ofdm.decide``; counters ``ofdm.detections`` (the table's count),
+    ``ofdm.slots`` (streams x det_max) and ``ofdm.fired`` (the steps the
+    scan computed a stream: the loop count's growth, and the one step that
+    did not fire, whose window it correlates before it leaves its loop;
+    computed only while a profiler records)."""
     chunk_len = chunk.shape[-1]
     lag = tracker_lag(cfg)
-    ext = torch.cat([state.hist, chunk])
-    ext_start = state.base - lag                 # global coordinate of ext[0]
-    ext_end = state.base + chunk_len
-    real_end = state.real_end + n_real
     m0, nd = cfg.m_synch, cfg.synch_dat[1]
-    fire_limit = torch.minimum(
-        real_end, ext_end - (nd - m0 + 1) * cfg.rx_b_len + 1)
+    with profiling.span("ofdm.track"):
+        ext = torch.cat([state.hist, chunk], -1)
+        ext_start = state.base - lag             # global coordinate of ext[0]
+        real_end = state.real_end + n_real
+        fire_limit = torch.minimum(
+            real_end, state.base + chunk_len - (nd - m0 + 1) * cfg.rx_b_len
+            + 1)
+        carry, (acc, ptrs_all, dels_all, peaks_all, chans) = \
+            tracker_kernel.track_scan(cfg, ext, ext_start, fire_limit,
+                                      state.carry, slots, det_max)
 
-    carry, (acc, ptrs_all, dels_all, peaks_all, chans) = \
-        tracker_kernel.track_scan(cfg, ext[None], ext_start, fire_limit,
-                                  state.carry, slots, det_max)
+    with profiling.span("ofdm.select"):
+        (g_ptrs, delays, peaks), count = sync.emit_slots(
+            acc, (ptrs_all, dels_all, peaks_all), det_max)
+        valid = torch.arange(det_max, device=chunk.device) < count[:, None]
+    profiling.count("ofdm.detections", count)
+    profiling.count("ofdm.slots", det_max * count.numel())
+    if profiling.recording():
+        profiling.count("ofdm.fired", (carry.loop_count -
+                                       state.carry.loop_count + 1
+                                       ).clamp_max(slots))
 
-    (g_ptrs, delays, peaks), count = sync.emit_slots(
-        acc, (ptrs_all, dels_all, peaks_all), det_max)
-    valid = torch.arange(det_max, device=chunk.device) < count[:, None]
-    ptrs_local = torch.where(valid, g_ptrs - ext_start, 0)
-    phasors = tracker.track_phasors(cfg, ext[None], ptrs_local, delays, valid,
-                                    real_end - ext_start, chans, demod_path)
+    with profiling.span("ofdm.demod"):
+        ptrs_local = torch.where(valid, g_ptrs - ext_start[:, None], 0)
+        phasors = tracker.track_phasors(cfg, ext, ptrs_local, delays, valid,
+                                        real_end - ext_start, chans,
+                                        demod_path)
 
-    new_state = TrackStreamState(
-        hist=ext[-lag:].clone(), base=state.base + chunk_len,
-        real_end=real_end, carry=carry)
-    out = TrackChunkOut(
-        ptrs=torch.where(valid, g_ptrs, -1)[0], delays=delays[0],
-        peaks=peaks[0], valid=valid[0], chans=chans[0], phasors=phasors[0],
-        hard_bits=stream_rx.hard_decide(cfg, phasors[0]))
+    with profiling.span("ofdm.decide"):
+        new_state = TrackStreamState(
+            hist=ext[..., -lag:].clone(), base=state.base + chunk_len,
+            real_end=real_end, carry=carry)
+        out = TrackChunkOut(
+            ptrs=torch.where(valid, g_ptrs, -1), delays=delays, peaks=peaks,
+            valid=valid, chans=chans, phasors=phasors,
+            hard_bits=stream_rx.hard_decide(cfg, phasors))
     return new_state, out
 
 
-class TrackerStreamingRx:
-    """Host-side front end of the streaming tracker, one stream: push(chunk)
-    is one call of the tracker block's work(), finish() flushes the history
-    with zero chunks.  No checkpoints: the JAX receiver has none."""
+class BatchTrackerStreamingRx:
+    """Host-side front end of B streaming trackers on one device (many
+    carriers), each with its own history and pointer state machine,
+    stepped together: one tracker launch and one demod launch a chunk step,
+    whatever B is.  push(chunks) is one call of the tracker block's work()
+    on every stream, finish() flushes the history with zero chunks.  No
+    checkpoints: the JAX receiver has none.
 
-    def __init__(self, cfg: OFDMConfig, chunk_len: int, device=None):
+    push(chunks)       [B, chunk_len]     -> TrackChunkOut with a leading B
+    push_many(chunks)  [K, B, chunk_len]  -> leading (K, B)
+
+    ``n_real`` is one number for all streams: sources advance in lockstep
+    and finish() pads every stream with the same zero chunks."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, batch: int,
+                 device=None):
         self.cfg = cfg
         self.chunk_len = chunk_len
-        self.chunk_shape = (chunk_len,)
+        self.batch = batch
         self.device = resolve_device(device)
         self.slots = chunk_len // tracker.tracker_stride(cfg) + 4
         self.det_max = chunk_len // (2 * cfg.cp_len + cfg.nfft) + 2
-        self.state = track_stream_init(cfg, self.device)
+        self.state = track_stream_init(cfg, batch, self.device)
         self._step = functools.partial(
             track_stream_step, cfg, slots=self.slots, det_max=self.det_max,
             demod_path=kernel_default(self.device, None))
 
+    @property
+    def chunk_shape(self) -> tuple:
+        return (self.batch, self.chunk_len)
+
     def push(self, chunk, n_real: int | None = None) -> TrackChunkOut:
-        chunk = as_samples(chunk, self.device)
-        if chunk.shape != self.chunk_shape:
-            raise ValueError(f"push: chunk {tuple(chunk.shape)}, expected "
-                             f"[{self.chunk_len}]")
-        self.state, out = self._step(
-            self.state, chunk, self.chunk_len if n_real is None else n_real)
-        return out
+        """One chunk step of every stream; span ``ofdm.chunk_step``, the
+        root of the step's stages."""
+        with profiling.span("ofdm.chunk_step"):
+            chunk = as_samples(chunk, self.device)
+            if chunk.shape != self.chunk_shape:
+                raise ValueError(f"push: chunk {tuple(chunk.shape)}, "
+                                 f"expected {list(self.chunk_shape)}")
+            self.state, out = self._step(
+                self.state, chunk.reshape(self.batch, self.chunk_len),
+                self.chunk_len if n_real is None else n_real)
+            return out
 
     def push_many(self, chunks) -> TrackChunkOut:
         """K chunk steps in one call; see :func:`_push_many`."""
@@ -764,7 +811,24 @@ class TrackerStreamingRx:
     def finish(self) -> list[TrackChunkOut]:
         """Zero chunks until the history and one chunk more have passed, so
         that every pointer inside the real samples resolves."""
-        zeros = torch.zeros(self.chunk_len, dtype=torch.complex64,
+        zeros = torch.zeros(self.chunk_shape, dtype=torch.complex64,
                             device=self.device)
         n = -(-(tracker_lag(self.cfg) + self.chunk_len) // self.chunk_len)
         return [self.push(zeros, n_real=0) for _ in range(n)]
+
+
+class TrackerStreamingRx(BatchTrackerStreamingRx):
+    """The streaming tracker of one stream: :class:`BatchTrackerStreamingRx`
+    at B = 1, its chunks [chunk_len] and its outputs without the stream
+    axis."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, device=None):
+        super().__init__(cfg, chunk_len, 1, device)
+
+    @property
+    def chunk_shape(self) -> tuple:
+        return (self.chunk_len,)
+
+    def push(self, chunk, n_real: int | None = None) -> TrackChunkOut:
+        out = super().push(chunk, n_real)
+        return TrackChunkOut(*(f[0] for f in out))

@@ -8,7 +8,9 @@ read unless a ``torch.profiler`` session records.
   sync, no device operation and no device allocation.
 - count: a value a step has already computed (a host int, or a device
   tensor, never a reduction made for the counter), kept while a profiler
-  session records; counters() sums them, reading device values only then.
+  session records; counters() sums them, reading device values only then,
+  and kept() lists them.  A value that only a counter reads is computed
+  under recording(), and so only then.
 - trace: a ``torch.profiler`` trace of the block (CPU, and CUDA where
   present), written as a Chrome trace file into ``logdir`` (TensorBoard's
   profiler plugin reads it), the block's counters beside it.
@@ -41,6 +43,12 @@ def span(name: str):
     return _OFF
 
 
+def recording() -> bool:
+    """Whether a profiler session records, which turns spans and counters
+    on: a step computes a value only a counter reads under this test."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def count(name: str, value) -> None:
     """Keep ``value`` (a host int or a device tensor the step has already
     computed) under ``name`` while a profiler session records."""
@@ -60,6 +68,13 @@ def counters() -> dict[str, tuple[int, int]]:
             total += int(torch.cat([t.cpu() for t in held]).sum())
         out[name] = (int(total), len(values))
     return out
+
+
+def kept(name: str) -> list:
+    """The values kept under ``name``, in order, each on the host (a
+    device tensor copied to the CPU)."""
+    return [v.cpu() if torch.is_tensor(v) else v
+            for v in _counters.get(name, [])]
 
 
 def reset_counters() -> None:

@@ -1050,6 +1050,80 @@ def test_tracker_warp_route_equals_block_route(dev):
         carry = w[0]
 
 
+@pytest.mark.parametrize("cfg", [
+    GOLDEN64, dataclasses.replace(LTE1024, num_data_bins=600,
+                                  num_ofdm_symb=32)],
+    ids=["golden64", "lte1024"])
+def test_tracker_routes_at_a_2_28_base(dev, cfg):
+    """Buffers whose first sample is global sample 2^28, from a carry whose
+    search starts there: both routes' kernels == the plain twin in every
+    carry field (b's bits too), accept, pointer and delay, the drift
+    prediction included (every pattern block detected, on the block grid);
+    and == the same buffers at base 0, every pointer 2^28 later."""
+    from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
+    from lte_gnu_radio_code_tpu_torch.models import tracker
+    base = 2 ** 28
+    _, xs = _frames(cfg, dev, 3, seed=47)
+    xs = xs.contiguous()
+    n = xs.shape[1]
+    steps = int(np.ceil(n / tracker.tracker_stride(cfg))) + 1
+    far = tracker.tracker_init_carry(3, dev)
+    far = far._replace(loop_count=torch.full_like(
+        far.loop_count, base // tracker.tracker_stride(cfg)))
+    c_ref, y_ref = ktrk.track_scan_plain(cfg, xs, base, base + n, far, steps,
+                                         cfg.num_patterns)
+    assert bool((y_ref[0].sum(1) == cfg.num_patterns).all())
+    assert int(c_ref.corr_obs.min()) >= 5            # the fit predicted
+    _, y0 = ktrk.track_scan_plain(cfg, xs, 0, n, tracker.tracker_init_carry(
+        3, dev), steps, cfg.num_patterns)
+    assert torch.equal(y_ref[1], y0[1] + base)
+    for kind in ("warp", "block") if cfg.nfft <= 128 else ("block",):
+        ck, yk = ktrk._launch(kind, cfg, xs, base, base + n, far, steps,
+                              cfg.num_patterns)
+        for name, a, b in zip(tracker.TrackerCarry._fields, ck, c_ref):
+            assert torch.equal(a, b), (kind, name)
+        for name, a, b in zip(("accept", "ptr", "delay"), yk, y_ref):
+            assert torch.equal(a, b), (kind, name)
+        torch.testing.assert_close(yk[3], y_ref[3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(yk[4], y_ref[4], atol=1e-5, rtol=0)
+
+
+def test_batch_tracker_stream_on_the_card(dev):
+    """BatchTrackerStreamingRx on 4 LTE1024 streams (the block route): one
+    tracker and one K2 launch a chunk step whatever B is, every stream ==
+    a TrackerStreamingRx of its own bit for bit, the plain path's integers
+    (one eager plain step), and a step under sync debug mode "error"."""
+    cfg = dataclasses.replace(LTE1024, num_data_bins=600, num_ofdm_symb=32)
+    _, xs = _frames(cfg, dev, 4, seed=48)
+    x = xs[:, :cfg.frame_len].contiguous()
+    chunk = 16384
+    k = cfg.frame_len // chunk
+    rx = rt.BatchTrackerStreamingRx(cfg, chunk, 4)
+    kernels.reset_launch_counts()
+    outs = [rx.push(x[:, i * chunk:(i + 1) * chunk]) for i in range(k)]
+    assert kernels.launch_counts() == {**dict.fromkeys(
+        kernels.KERNEL_MODULES, 0), "tracker": k, "equalize": k}
+    found = sum(int(o.valid.sum()) for o in outs)
+    assert found >= 4 * (cfg.num_patterns - 2)
+    for b in (0, 3):
+        one = rt.TrackerStreamingRx(cfg, chunk)
+        for i, o in enumerate(outs):
+            w = one.push(x[b, i * chunk:(i + 1) * chunk])
+            for name in w._fields:
+                assert torch.equal(getattr(o, name)[b], getattr(w, name)), \
+                    name
+    plain = rt.BatchTrackerStreamingRx(cfg, chunk, 4, device="cpu")
+    for i, o in enumerate(outs[:2]):
+        p = plain.push(x[:, i * chunk:(i + 1) * chunk].cpu())
+        for name in ("ptrs", "delays", "valid", "hard_bits"):
+            assert torch.equal(getattr(o, name).cpu(), getattr(p, name)), name
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rx.push(x[:, :chunk])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def test_tracker_kernel_shape_rule(dev):
     """An nfft that is not a power of two, no synch symbol, or a carry of
     another type raises ValueError on a CUDA tensor."""

@@ -1,6 +1,7 @@
 """The port's stage spans and counters (``utils/profiling.py``) in its two
-benchmarked steps, on the CPU: ``models/chain.py:chain_batch`` and
-``runtime/stream.py:BatchReacqStreamingRx.push``.
+benchmarked steps, on the CPU: ``models/chain.py:chain_batch``,
+``runtime/stream.py:BatchReacqStreamingRx.push`` and
+``BatchTrackerStreamingRx.push``.
 
 Under ``torch.profiler`` every stage span of a step appears once a step,
 inside its root span, in the step's order; with the profiler off no
@@ -29,6 +30,8 @@ STAGES = {
                                   "ofdm.demod", "ofdm.demap"]),
     "stream": ("ofdm.chunk_step", ["ofdm.search", "ofdm.select",
                                    "ofdm.demod", "ofdm.decide"]),
+    "track": ("ofdm.chunk_step", ["ofdm.track", "ofdm.select",
+                                  "ofdm.demod", "ofdm.decide"]),
 }
 
 
@@ -74,8 +77,24 @@ def _stream_steps():
     return [rx.push(c) for c in CHUNKS]
 
 
-RUN = {"chain": _chain_steps, "stream": _stream_steps}
-KINDS = pytest.mark.parametrize("kind", ["chain", "stream"])
+TRACK_CHUNK = 800       # the plain tracker steps one stride at a time
+TRACK_CHUNKS = CHUNKS.transpose(0, 1).reshape(STREAMS, -1)[
+    :, :STEPS * TRACK_CHUNK].reshape(STREAMS, STEPS, TRACK_CHUNK).transpose(
+        0, 1).contiguous()
+
+
+def _tracker():
+    return rt.BatchTrackerStreamingRx(GOLDEN64, TRACK_CHUNK, STREAMS,
+                                      device="cpu")
+
+
+def _track_steps():
+    rx = _tracker()
+    return [rx.push(c) for c in TRACK_CHUNKS]
+
+
+RUN = {"chain": _chain_steps, "stream": _stream_steps, "track": _track_steps}
+KINDS = pytest.mark.parametrize("kind", ["chain", "stream", "track"])
 
 
 def _ofdm_spans(prof):
@@ -145,6 +164,34 @@ def test_detection_and_slot_counters_hold_the_steps_values():
     assert profiling.counters() == {
         "ofdm.detections": (found, STEPS),
         "ofdm.slots": (STEPS * STREAMS * det_max, STEPS)}
+
+
+def test_tracker_counters_hold_the_steps_values():
+    """The tracker's chunk step keeps the table's count, streams x det_max
+    and, in ``ofdm.fired``, the steps its scan computed a stream: the loop
+    count's growth and the one step that did not fire (whose outputs fill
+    the call's remaining slots), as ``kept`` lists them."""
+    rx = _tracker()
+    loops = [rx.state.carry.loop_count.clone()]
+    outs = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for c in TRACK_CHUNKS:
+            outs.append(rx.push(c))
+            loops.append(rx.state.carry.loop_count.clone())
+    fired = [torch.clamp(b - a + 1, max=rx.slots)
+             for a, b in zip(loops, loops[1:])]
+    found = sum(int(o.valid.sum()) for o in outs)
+    assert found > 0 and all(bool((f < rx.slots).all()) for f in fired)
+    assert profiling.counters() == {
+        "ofdm.detections": (found, STEPS),
+        "ofdm.slots": (STEPS * STREAMS * rx.det_max, STEPS),
+        "ofdm.fired": (int(sum(f.sum() for f in fired)), STEPS)}
+    kept = profiling.kept("ofdm.fired")
+    assert len(kept) == STEPS
+    for a, b in zip(kept, fired):
+        assert torch.equal(a, b)
+    assert profiling.kept("ofdm.nothing") == []
 
 
 def test_counters_sum_host_ints_and_device_values():
