@@ -20,8 +20,9 @@ at 100 dB, concatenated and cut into chunks) at LTE1024 (16 chunks of
 every whole pattern block detected once with the sent bits, kernel path
 == plain path, streaming == whole buffer, ``push_many`` == pushes, batch
 == single stream, resume from a checkpoint == uninterrupted, one K4 and
-one K2 launch a chunk step, no host synchronisation inside a step, a step
-captured and replayed as a CUDA graph, the single-lock ``StreamingRx``,
+one K2 launch a chunk step, no host synchronisation inside a step, the
+receiver's CUDA graph path (a full chunk replays the step captured at the
+first) against the eager ``reacq_step`` chain, the single-lock ``StreamingRx``,
 and K4 and K2 against their plain versions at the serving shapes.
 
 Then the other receiver generations.  ``qam_run``: the chain again at the
@@ -955,58 +956,66 @@ def check_detections(cfg, outs, bits, n_real, cell, max_bit_err=0.0) -> int:
     return total
 
 
-def graph_replay(cfg, chunks, det_max, ref, eager_ms, cell) -> None:
-    """One chunk step captured in a CUDA graph (which a step that waited
-    for the host could not be) and replayed chunk by chunk: outputs against
-    the eager run's, and its time beside the eager loop's.  A measurement:
-    the receivers run the eager loop, where every launch goes through its
-    wrapper and is counted."""
+def graph_replay(cfg, chunks, cell) -> None:
+    """The receiver's own graph path (``BatchReacqStreamingRx.push`` on the
+    card: one CUDA graph of the chunk step, captured at the first full
+    chunk, replayed a chunk) against the eager chain of the functional
+    ``reacq_step`` on the same chunks from an empty carry: decisions equal,
+    floats within 2e-6, the same launch counts; the ms a step of each, the
+    median of SERVING_ROUNDS rounds of the k chunks ending in a
+    synchronize."""
+    from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 
     k, batch, chunk_len = chunks.shape
-    dev = chunks.device
-    state = rt.reacq_init(cfg, dev, batch)
-    chunk = torch.zeros_like(chunks[0])
+    rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
     step = functools.partial(rt.reacq_step, cfg, n_real=chunk_len,
-                             det_max=det_max, fast="kernel",
+                             det_max=rx.det_max, fast="kernel",
                              demod_path="kernel")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            step(state, chunk)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        new_state, out = step(state, chunk)
-        for dst, src in zip(state, new_state):
-            dst.copy_(src)
+    rx.push(chunks[0])                                  # the capture
 
-    def run():
-        for t in state:
-            t.zero_()
+    def eager():
+        state = rt.reacq_init(cfg, chunks.device, batch)
         outs = []
         for c in chunks:
-            chunk.copy_(c)
-            graph.replay()
-            outs.append(type(out)(*(f.clone() for f in out)))
+            state, out = step(state, c)
+            outs.append(out)
         return outs
 
-    worst = same_outs(stack_outs(run()), ref, f"{cell}: graph replay vs eager",
+    def graph():
+        for t in rx.state:
+            t.zero_()
+        return [rx.push(c) for c in chunks]
+
+    counts = []
+    for run in (eager, graph):
+        kernels.reset_launch_counts()
+        outs = stack_outs(run())
+        counts.append(kernels.launch_state())
+        if run is eager:
+            ref = outs
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{cell}: graph path launch counts {counts[1]} "
+                             f"vs the eager chain's {counts[0]}")
+    worst = same_outs(outs, ref, f"{cell}: graph path vs eager chain",
                       float_atol=2e-6)
-    times = []
+    times = {eager: [], graph: []}
     for _ in range(SERVING_ROUNDS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3 / k)
-    ms = sorted(times)[len(times) // 2]
-    print(f"{cell}: one step captured as a CUDA graph and replayed {k} "
-          f"times: decisions equal to the eager run's, floats within "
-          f"{worst:.1e}; {ms:.3f} ms a step (rounds "
-          f"{', '.join(f'{t:.3f}' for t in times)}) against {eager_ms:.3f} "
-          f"eager: {eager_ms / ms:.2f}x")
+        for run in (eager, graph):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[run].append((time.perf_counter() - t0) * 1e3 / k)
+    ms = {run: sorted(t)[len(t) // 2] for run, t in times.items()}
+    print(f"{cell}: the receiver's graph path ({k} pushes replaying the "
+          f"step captured at its first chunk) == the eager reacq_step "
+          f"chain: decisions equal, floats within {worst:.1e}, launch "
+          f"counts equal; {ms[graph]:.3f} ms a step (rounds "
+          f"{', '.join(f'{t:.3f}' for t in times[graph])}) against "
+          f"{ms[eager]:.3f} eager (rounds "
+          f"{', '.join(f'{t:.3f}' for t in times[eager])}): "
+          f"{ms[eager] / ms[graph]:.2f}x")
 
 
 def same_as_whole(cfg, outs, stream, n_real, what) -> int:
@@ -1096,7 +1105,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     many = rx.push_many(chunks)
-    state_k = rx.state                      # the carry after the K chunks
+    state_k = type(rx.state)(*(t.clone() for t in rx.state))  # after K
     outs = cat_outs([many, stack_outs(rx.finish())])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -1171,8 +1180,11 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
 
     # -- timing: Msamples/s of a push_many ending in a synchronize -----------
     times = []
+    trx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    trx.push(chunks[0])                                 # the capture
     for _ in range(SERVING_ROUNDS):
-        trx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+        for t in trx.state:
+            t.zero_()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trx.push_many(chunks)
@@ -1186,6 +1198,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
           f"{msps:.3f} Msamples/s, {step_ms:.3f} ms a chunk step (median of "
           f"rounds {rounds}) on {gpu}")
     prof_rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
+    prof_rx.push(chunks[0])                             # the capture
     busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell)
 
     # -- the selection's launches, K4 and K2 alone at this shape -------------
@@ -1202,7 +1215,7 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
     checks = {"sync_search": sync_checks(cfg, batch, ext, t_per, cell),
               "equalize": equalize_check(cfg, win, coeff)}
     print_kernel_rows(cell, checks)
-    graph_replay(cfg, chunks, rx.det_max, many, step_ms, cell)
+    graph_replay(cfg, chunks, cell)
     return counts, checks
 
 
@@ -3298,22 +3311,24 @@ def sharded_chain_run(cfg_name, batch, t, dev, gpu) -> tuple:
 
 
 def stream_times(make, chunks, cell, top=0):
-    """ms a chunk step of a push_many on a fresh receiver from make()
-    (median of SERVING_ROUNDS, and every round's), and busy ms and
-    launches a step from a profile of single pushes (its top kernels
-    printed)."""
+    """ms a chunk step of a push_many on a receiver from make(), warmed by
+    one push (a reacq receiver captures its CUDA graph there) and its carry
+    zeroed, the empty carry, before each round (median of SERVING_ROUNDS,
+    and every round's), and busy ms and launches a step from a profile of
+    single pushes (its top kernels printed)."""
     k = len(chunks)
     times = []
+    rx = make()
+    rx.push(chunks[0])
     for _ in range(SERVING_ROUNDS):
-        rx = make()
+        for t in rx.state:
+            t.zero_()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rx.push_many(chunks)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / k)
-    prof_rx = make()
-    busy, launches = profile(lambda i: prof_rx.push(chunks[i % k]), cell,
-                             top=top)
+    busy, launches = profile(lambda i: rx.push(chunks[i % k]), cell, top=top)
     return sorted(times)[len(times) // 2], times, busy, launches
 
 

@@ -7,7 +7,9 @@ Each module keeps ``launches``, a plain int that its wrapper raises by one
 per kernel launch (the twin never counts); K4 and the tracker also keep
 ``route_launches``, the same launches by route, and K4 ``peak_launches``,
 those of its launches in the peaks form, by route.
-:func:`reset_launch_counts` sets them all to 0.
+:func:`reset_launch_counts` sets them all to 0; :func:`launch_state` reads
+them all and :func:`add_launches` raises them (a replayed CUDA graph adds
+the launches its capture made).
 """
 
 KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
@@ -22,6 +24,30 @@ def _modules():
 
 def launch_counts() -> dict[str, int]:
     return {name: m.launches for name, m in _modules().items()}
+
+
+def launch_state() -> dict[tuple, int]:
+    """Every counter at once: {(module, "launches", None): n,
+    (module, "route_launches" | "peak_launches", route): n}."""
+    out = {}
+    for name, m in _modules().items():
+        out[name, "launches", None] = m.launches
+        for attr in ("route_launches", "peak_launches"):
+            for kind, n in getattr(m, attr, {}).items():
+                out[name, attr, kind] = n
+    return out
+
+
+def add_launches(delta: dict[tuple, int]) -> None:
+    """Raise the counters by ``delta`` (keys of :func:`launch_state`): a
+    replayed CUDA graph adds the launches its capture made."""
+    mods = _modules()
+    for (name, attr, kind), n in delta.items():
+        m = mods[name]
+        if kind is None:
+            m.launches += n
+        else:
+            getattr(m, attr)[kind] += n
 
 
 def reset_launch_counts() -> None:

@@ -42,10 +42,11 @@ import torch
 from ..models import legacy_rx, stream_rx
 from ..ops import cfo as cfo_ops
 from ..ops import sync
-from ..runtime.stream import (LegacyChunkOut, LegacyStreamingRx,
-                              LegacyStreamState, ReacqChunkOut, ReacqState,
-                              ReacqStreamingRx, legacy_init, legacy_lag,
-                              reacq_det_max, reacq_init, reacq_lag)
+from ..runtime.stream import (EagerStreamingRx, LegacyChunkOut,
+                              LegacyStreamingRx, LegacyStreamState,
+                              ReacqChunkOut, ReacqState, legacy_init,
+                              legacy_lag, reacq_det_max, reacq_init,
+                              reacq_lag)
 from ..utils.device import kernel_default
 from ..utils.params import OFDMConfig
 from . import mesh as pmesh
@@ -163,10 +164,11 @@ def make_sharded_reacq_step(cfg: OFDMConfig, chunk_len: int,
         demod_path=kernel_default(mesh.device, demod_path)), det_max
 
 
-class ShardedReacqStreamingRx(ReacqStreamingRx):
+class ShardedReacqStreamingRx(EagerStreamingRx):
     """The ``ReacqStreamingRx`` semantics (``push``, ``push_many``,
     ``finish`` and the npz checkpoints) with every chunk time-sharded over
-    the mesh, on the mesh's device."""
+    the mesh, on the mesh's device; each step runs eagerly
+    (:class:`EagerStreamingRx`)."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, mesh: pmesh.Mesh,
                  axis: str = "t", fast=None, demod_path=None):

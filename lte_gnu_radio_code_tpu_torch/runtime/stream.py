@@ -25,10 +25,12 @@ A step keeps static shapes (fixed [det_max] / [kmax] tables with a
 ``valid`` mask), holds its carry in device tensors and never waits for the
 host: no ``.item()``, no boolean-mask indexing, no tensor made from a
 Python number on the way.  That is what lets a step be captured in a CUDA
-graph.  The batch receiver's step carries an explicit leading stream axis:
-one sync search (K4) and one demod (K2) launch a chunk step, however many
-streams there are.  The tracker's step is one launch of its step loop
-(``kernels/tracker.py``) and one of K2, however many streams there are.
+graph, as ``ReacqStreamingRx`` does on a CUDA device: it replays one
+graph a full chunk.  The batch receiver's step carries an explicit leading
+stream axis: one sync search (K4) and one demod (K2) launch a chunk step,
+however many streams there are.  The tracker's step is one launch of its
+step loop (``kernels/tracker.py``) and one of K2, however many streams
+there are.
 
 The receivers run on the CUDA device unless the caller passes a ``device``
 (``"cpu"`` runs the kernels' plain versions); where there is no CUDA device
@@ -44,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..kernels import equalize
 from ..kernels import tracker as tracker_kernel
 from ..models import legacy_rx, stream_rx, tracker
@@ -276,6 +279,19 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     Spans ``ofdm.search``, ``ofdm.select``, ``ofdm.demod``,
     ``ofdm.decide``; counters ``ofdm.detections`` (the table's count) and
     ``ofdm.slots`` (streams x det_max)."""
+    new_state, out, count = _reacq_stages(cfg, state, chunk, n_real,
+                                          det_max, fast, demod_path)
+    profiling.count("ofdm.detections", count)
+    profiling.count("ofdm.slots", det_max * count.numel())
+    return new_state, out
+
+
+def _reacq_stages(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
+                  n_real, det_max: int, fast: str | None = None,
+                  demod_path: str | None = None
+                  ) -> tuple[ReacqState, ReacqChunkOut, torch.Tensor]:
+    """:func:`reacq_step` without its counters: (new state, outputs, the
+    table's count [...]), the work a receiver captures in a CUDA graph."""
     chunk_len = chunk.shape[-1]
     stride = _stride_aligned(cfg, chunk_len)
     lag = reacq_lag(cfg)
@@ -299,8 +315,6 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
                 cfg, crossing, (local_ptrs, dmax_ind, dmax_val), det_max,
                 ext_start + cfg.cp_len, state.last_det_ptr, state.any_det)
         valid = torch.arange(det_max, device=dev) < count[..., None]
-    profiling.count("ofdm.detections", count)
-    profiling.count("ofdm.slots", det_max * count.numel())
 
     with profiling.span("ofdm.demod"):
         real_end = state.real_end + n_real
@@ -317,7 +331,7 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
                             delays=delays, peaks=peaks, valid=valid,
                             demod_ok=demod_ok, chans=chans, phasors=phasors,
                             hard_bits=stream_rx.hard_decide(cfg, phasors))
-    return new_state, out
+    return new_state, out, count
 
 
 def _push_many(rx, chunks):
@@ -388,49 +402,41 @@ def _load_npz(path, like, complex_fields: dict):
     return type(like)(**fields)
 
 
-class ReacqStreamingRx:
-    """Host-side front end of the continuous multi-detection receiver:
-    push(chunk) is one call of the reference block's work(), finish()
-    flushes the lag so that trailing detections resolve."""
+class EagerStreamingRx:
+    """Host-side front end that the continuous receivers share: push(chunk)
+    is one call of the reference block's work(), run as the step function
+    on the carry, whose new carry it takes; finish() flushes the lag with
+    zero chunks so that trailing detections resolve; npz checkpoints of the
+    carry.  A subclass sets ``cfg``, ``chunk_len``, ``device``, ``det_max``,
+    ``lag``, ``state`` and ``_step``."""
 
     batch = None        # BatchReacqStreamingRx: the number of streams
-
-    def __init__(self, cfg: OFDMConfig, chunk_len: int, fast=None,
-                 demod_path=None, device=None):
-        _stride_aligned(cfg, chunk_len)
-        self.cfg = cfg
-        self.chunk_len = chunk_len
-        self.device = resolve_device(device)
-        self.det_max = reacq_det_max(cfg, chunk_len)
-        self.lag = reacq_lag(cfg)
-        self.state = reacq_init(cfg, self.device, self.batch)
-        self._step = functools.partial(
-            reacq_step, cfg, det_max=self.det_max,
-            fast=kernel_default(self.device, fast),
-            demod_path=kernel_default(self.device, demod_path))
 
     @property
     def chunk_shape(self) -> tuple:
         return self.state.hist.shape[:-1] + (self.chunk_len,)
 
-    def push(self, chunk, n_real: int | None = None) -> ReacqChunkOut:
+    def _samples(self, chunk) -> torch.Tensor:
+        chunk = as_samples(chunk, self.device)
+        if chunk.shape != self.chunk_shape:
+            raise ValueError(f"push: chunk {tuple(chunk.shape)}, "
+                             f"expected {tuple(self.chunk_shape)}")
+        return chunk
+
+    def push(self, chunk, n_real: int | None = None):
         """One chunk step; span ``ofdm.chunk_step``, the root of the
         step's stages."""
         with profiling.span("ofdm.chunk_step"):
-            chunk = as_samples(chunk, self.device)
-            if chunk.shape != self.chunk_shape:
-                raise ValueError(f"push: chunk {tuple(chunk.shape)}, "
-                                 f"expected {tuple(self.chunk_shape)}")
             self.state, out = self._step(
-                self.state, chunk,
+                self.state, self._samples(chunk),
                 self.chunk_len if n_real is None else n_real)
             return out
 
-    def push_many(self, chunks) -> ReacqChunkOut:
+    def push_many(self, chunks):
         """K chunk steps in one call; see :func:`_push_many`."""
         return _push_many(self, chunks)
 
-    def finish(self) -> list[ReacqChunkOut]:
+    def finish(self) -> list:
         """Flush the lag with zero chunks so that trailing trials resolve."""
         zeros = torch.zeros(self.chunk_shape, dtype=torch.complex64,
                             device=self.device)
@@ -443,6 +449,111 @@ class ReacqStreamingRx:
 
     def load_state(self, path) -> None:
         self.state = _load_npz(path, self.state, {"hist": "hist"})
+
+
+class _ReacqGraph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    chunk: torch.Tensor         # the chunk buffer the graph reads
+    out: ReacqChunkOut          # the graph's outputs, rewritten each replay
+    count: torch.Tensor         # the graph's detection count, the same
+    launched: dict              # kernels.launch_state() keys: a replay's
+
+
+class ReacqStreamingRx(EagerStreamingRx):
+    """Host-side front end of the continuous multi-detection receiver
+    (:class:`EagerStreamingRx`, on :func:`reacq_step`).
+
+    Its carry is tensors made once: every step copies the new carry into
+    them, ``state`` is a ``ReacqState`` of them, and assigning ``state`` or
+    ``load_state`` copies into them.  On a CUDA device a full chunk (n_real
+    None or chunk_len) runs as one replay of a CUDA graph of the step,
+    captured at the first full chunk: a launch a step in place of some 160,
+    the same kernels at the same precision, outputs cloned from the graph's
+    (the next replay rewrites them), the kernels' launch counters raised by
+    what the capture launched.  A partial chunk, the flush and every step
+    on the CPU run the step eagerly on the same carry.  Counter
+    ``ofdm.graph_steps``: 1 a replayed step, 0 an eager one."""
+
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, fast=None,
+                 demod_path=None, device=None):
+        _stride_aligned(cfg, chunk_len)
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.device = resolve_device(device)
+        self.det_max = reacq_det_max(cfg, chunk_len)
+        self.lag = reacq_lag(cfg)
+        self._carry = reacq_init(cfg, self.device, self.batch)
+        paths = dict(det_max=self.det_max,
+                     fast=kernel_default(self.device, fast),
+                     demod_path=kernel_default(self.device, demod_path))
+        self._step = functools.partial(reacq_step, cfg, **paths)
+        self._stages = functools.partial(_reacq_stages, cfg, **paths)
+        self._graph = None
+
+    @property
+    def state(self) -> ReacqState:
+        return self._carry
+
+    @state.setter
+    def state(self, value: ReacqState) -> None:
+        for dst, src in zip(self._carry, value):
+            dst.copy_(src)
+
+    def push(self, chunk, n_real: int | None = None) -> ReacqChunkOut:
+        """One chunk step; span ``ofdm.chunk_step``, the root of the
+        step's stages (a replayed step runs none of their Python)."""
+        with profiling.span("ofdm.chunk_step"):
+            chunk = self._samples(chunk)
+            if self.device.type == "cuda" and n_real in (None,
+                                                         self.chunk_len):
+                return self._replay(chunk)
+            self.state, out = self._step(
+                self.state, chunk,
+                self.chunk_len if n_real is None else n_real)
+            profiling.count("ofdm.graph_steps", 0)
+            return out
+
+    def _replay(self, chunk: torch.Tensor) -> ReacqChunkOut:
+        if self._graph is None:
+            self._graph = self._capture(chunk)
+        g = self._graph
+        g.chunk.copy_(chunk)
+        g.graph.replay()
+        kernels.add_launches(g.launched)
+        if profiling.recording():
+            profiling.count("ofdm.detections", g.count.clone())
+            profiling.count("ofdm.slots", self.det_max * g.count.numel())
+            profiling.count("ofdm.graph_steps", 1)
+        return ReacqChunkOut(*(f.clone() for f in g.out))
+
+    def _capture(self, chunk: torch.Tensor) -> _ReacqGraph:
+        """The graph of one full chunk step on the carry and a chunk buffer
+        (``_reacq_stages``, then the new carry copied into the carry).  Two
+        warm-up steps on a side stream first make every table, FFT plan
+        and workspace the step uses (the step is pure: they leave the carry
+        as it is).  The launch counters end as they began; what the capture
+        launched is what each replay adds."""
+        buf = chunk.clone(memory_format=torch.contiguous_format)
+        step = functools.partial(self._stages, n_real=self.chunk_len)
+        before = kernels.launch_state()
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    step(self._carry, buf)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            warm = kernels.launch_state()
+            with torch.cuda.graph(graph):
+                new_state, out, count = step(self._carry, buf)
+                self.state = new_state
+        after = kernels.launch_state()
+        kernels.add_launches({k: before[k] - n for k, n in after.items()})
+        return _ReacqGraph(graph, buf, out, count,
+                           {k: n - warm[k] for k, n in after.items()
+                            if n != warm[k]})
 
 
 class BatchReacqStreamingRx(ReacqStreamingRx):
@@ -622,12 +733,12 @@ def legacy_stream_step(cfg: OFDMConfig, state: LegacyStreamState,
     return new_state, out
 
 
-class LegacyStreamingRx(ReacqStreamingRx):
+class LegacyStreamingRx(EagerStreamingRx):
     """Host-side front end of the continuous CFO/DSSS receiver: push(chunk)
     is one call of the legacy block's work(), finish() flushes the lag so
     that trailing detections and their data symbols resolve.  ``push``,
     ``push_many``, ``finish`` and the npz checkpoints (the JAX receiver's
-    six keys) are the continuous receiver's."""
+    six keys) are :class:`EagerStreamingRx`'s."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, fo_range=(0.0,),
                  dsss: int = 1, demod_path=None, device=None):

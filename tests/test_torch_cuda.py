@@ -7,8 +7,10 @@ kernel at the dense search's sizes and at an nfft that is not a power of
 two, and the wrapper to the route rule.  Imports no JAX, so it also runs
 on a GPU host that has none (``--noconftest`` skips tests/conftest.py,
 which imports jax).  The serving path (``runtime/stream.py``) is held at a
-short stream: K4 and K2 at a chunk step's shapes, and the receivers on the
-kernel path against the plain path.  The other receiver generations are
+short stream: K4 and K2 at a chunk step's shapes, the receivers on the
+kernel path against the plain path, and their CUDA graph path (a full chunk
+replays the step captured at the first) against the eager ``reacq_step``
+chain, under sync debug mode "error" and the profiler.  The other receiver generations are
 held the same way: K2 with the rotation alone against ``torch.fft`` at the
 pilot shapes, and the kernel path against the plain path for the QAM chain,
 the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
@@ -562,6 +564,107 @@ def test_serving_kernel_path_equals_plain_path(dev, cfg, chunk):
         assert torch.equal(getattr(one, name), getattr(many, name)[:, 1])
     torch.testing.assert_close(one.phasors, many.phasors[:, 1], atol=2e-5,
                                rtol=0)
+
+
+def _eager_reacq_chain(rx, steps):
+    """The functional ``reacq_step`` on rx's kernel paths, eagerly, from an
+    empty carry over steps [(chunk, n_real)]: (outputs, final carry, the
+    launch counters' growth)."""
+    state = rt.reacq_init(rx.cfg, rx.device, rx.batch)
+    before = kernels.launch_state()
+    outs = []
+    for c, n in steps:
+        state, out = rt.reacq_step(rx.cfg, state, c, n, rx.det_max,
+                                   fast="kernel", demod_path="kernel")
+        outs.append(out)
+    after = kernels.launch_state()
+    return outs, state, {k: v - before[k] for k, v in after.items()}
+
+
+def _same_step(a, b, what):
+    """Decisions equal, floats within 2e-6 (the same kernels run)."""
+    for name in ("ptrs", "delays", "valid", "demod_ok", "hard_bits"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
+    for name in ("phasors", "chans"):
+        torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                   atol=2e-6, rtol=0, msg=f"{what} {name}")
+    torch.testing.assert_close(a.peaks, b.peaks, atol=0, rtol=2e-6)
+
+
+@SERVING
+def test_graph_pushes_equal_the_eager_chain(dev, cfg, chunk):
+    """A receiver at a serving chunk: full chunks replay its CUDA graph, a
+    partial chunk and the flush step eagerly, all on one carry updated in
+    place; every step == the functional ``reacq_step`` chain run eagerly,
+    step i's outputs unchanged after step i+1, the launch counters grown
+    as by the eager chain."""
+    k, batch, n_last = 4, 4, chunk // 3
+    x = _streams(cfg, dev, batch, (k + 1) * chunk, seed=31)
+    x[:, k * chunk + n_last:] = 0
+    chunks = x.reshape(batch, k + 1, chunk).transpose(0, 1)   # strided views
+    rx = rt.BatchReacqStreamingRx(cfg, chunk, batch)
+    carry = list(rx.state)
+    kernels.reset_launch_counts()
+    outs, kept = [], []
+    for c in chunks[:k]:
+        outs.append(rx.push(c))
+        kept.append(type(outs[-1])(*(f.clone() for f in outs[-1])))
+    outs.append(rx.push(chunks[k], n_real=n_last))
+    outs += rx.finish()
+    counts = kernels.launch_state()
+    assert all(a is b for a, b in zip(rx.state, carry))
+    zero = torch.zeros_like(chunks[0])
+    steps = ([(c, chunk) for c in chunks[:k]] + [(chunks[k], n_last)] +
+             [(zero, 0)] * (len(outs) - k - 1))
+    kernels.reset_launch_counts()
+    ref, ref_state, ref_counts = _eager_reacq_chain(rx, steps)
+    assert counts == ref_counts
+    assert counts["sync_search", "launches", None] == len(outs)
+    for i, (o, r) in enumerate(zip(outs, ref, strict=True)):
+        _same_step(o, r, f"step {i}")
+    for i, (o, r) in enumerate(zip(outs[:k], kept)):
+        for name in o._fields:
+            assert torch.equal(getattr(o, name), getattr(r, name)), (i, name)
+    for a, b in zip(rx.state, ref_state):
+        assert torch.equal(a, b)
+    assert int(sum(o.valid.sum() for o in outs)) > 0
+
+
+@SERVING
+def test_graph_step_traces_its_kernels_without_a_host_sync(dev, cfg, chunk):
+    """Replayed chunk steps under torch.profiler and sync debug mode
+    "error": nothing waits for the host, the trace holds K4's and K2's
+    kernels by name as device events of the replay, and the step keeps its
+    counters (``ofdm.graph_steps`` 1 a step, the detections as the
+    outputs hold them)."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = 4
+    chunks = _streams(cfg, dev, batch, 3 * chunk, seed=32).reshape(
+        batch, 3, chunk).transpose(0, 1)
+    rx = rt.BatchReacqStreamingRx(cfg, chunk, batch)
+    rx.push(chunks[0])                                    # the capture
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs = [rx.push(c) for c in chunks[1:]]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        assert profiling.kept("ofdm.graph_steps") == [1, 1]
+        assert profiling.counters()["ofdm.detections"] == (
+            int(sum(o.valid.sum() for o in outs)), 2)
+    finally:
+        profiling.reset_counters()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k4 = [n for n in names if "sync_search_" in n]
+    k2 = [n for n in names if "equalize_fft" in n]
+    assert len(k4) == len(k2) == 2, (k4, k2)
+    assert any(e.name == "ofdm.chunk_step" for e in prof.events())
 
 
 def _device_ops(fn, root) -> int:

@@ -24,7 +24,10 @@ from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import _cuda
 from lte_gnu_radio_code_tpu_torch.models import stream_rx
 from lte_gnu_radio_code_tpu_torch.ops import sync
+from lte_gnu_radio_code_tpu_torch.parallel import mesh as pmesh
+from lte_gnu_radio_code_tpu_torch.parallel import streaming
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
+from lte_gnu_radio_code_tpu_torch.utils import profiling
 from torch_parity import port_cfg, recorded_launch, reduced
 
 CFG = GOLDEN64
@@ -550,6 +553,131 @@ def test_reacq_checkpoint_crosses_the_packages(tmp_path, faded, writer):
     with pytest.raises(ValueError, match="shape"):
         rt.ReacqStreamingRx(port_cfg(S31), 31 * 80, device="cpu").load_state(
             tmp_path / "st.npz")
+
+
+def _batch_chunks(chunk, batch, seed):
+    """[K, B, chunk] chunks of B faded frames, the last chunk's real
+    samples (the frames' end inside it) and the streams' bits."""
+    parts = [_faded(CFG, seed + b) for b in range(batch)]
+    n = len(parts[0][1])
+    buf, n_reals = _padded(parts[0][1], chunk)
+    assert 0 < n_reals[-1] < chunk
+    pad = np.zeros((batch, len(buf)), np.complex64)
+    pad[:, :n] = np.stack([p[1] for p in parts])
+    return (pad.reshape(batch, -1, chunk).transpose(1, 0, 2), n_reals[-1],
+            [p[0] for p in parts])
+
+
+def _eager_chain(rx, chunks, n_last):
+    """The functional ``reacq_step`` on rx's paths, chunk by chunk from an
+    empty carry: full chunks, the last with n_last real samples, then the
+    flush; returns (outputs, final carry)."""
+    state = rt.reacq_init(rx.cfg, rx.device, rx.batch)
+    outs = []
+    flush = np.zeros_like(chunks[0])
+    steps = [(c, rx.chunk_len) for c in chunks[:-1]] + [(chunks[-1], n_last)]
+    steps += [(flush, 0)] * (-(-rx.lag // rx.chunk_len))
+    for c, n in steps:
+        state, out = rx._step(state, torch.from_numpy(c), n)
+        outs.append(out)
+    return outs, state
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_receiver_carry_is_updated_in_place(batch):
+    """A batch receiver fed full chunks, a partial chunk and finish() ==
+    the functional ``reacq_step`` chain step for step, exactly, with its
+    carry the same tensor objects from the first step to the last."""
+    chunk = 1504
+    chunks, n_last, bits = _batch_chunks(chunk, batch, 40)
+    rx = rt.BatchReacqStreamingRx(PCFG, chunk, batch, device="cpu")
+    carry = list(rx.state)
+    outs = [rx.push(c) for c in chunks[:-1]]
+    outs.append(rx.push(chunks[-1], n_real=n_last))
+    outs += rx.finish()
+    assert all(a is b for a, b in zip(rx.state, carry))
+    ref, ref_state = _eager_chain(rx, chunks, n_last)
+    assert len(outs) == len(ref)
+    for o, r in zip(outs, ref):
+        for f in o._fields:
+            assert torch.equal(getattr(o, f), getattr(r, f)), f
+    for a, b in zip(rx.state, ref_state):
+        assert torch.equal(a, b)
+    for b in range(batch):
+        hard = np.concatenate([_np(o.hard_bits[b])[_np(o.valid[b])]
+                               for o in outs])
+        np.testing.assert_array_equal(hard.ravel(), bits[b])
+
+
+def test_load_state_writes_into_the_carry(tmp_path):
+    """load_state (and assigning ``state``) copies into the receiver's own
+    carry tensors; the resumed stream == the uninterrupted one."""
+    chunk = 960
+    chunks, n_last, _ = _batch_chunks(chunk, 2, 50)
+    whole = rt.BatchReacqStreamingRx(PCFG, chunk, 2, device="cpu")
+    full = [whole.push(c) for c in chunks[:-1]] + whole.finish()
+    first = rt.BatchReacqStreamingRx(PCFG, chunk, 2, device="cpu")
+    for c in chunks[:5]:
+        first.push(c)
+    first.save_state(tmp_path / "st.npz")
+    resumed = rt.BatchReacqStreamingRx(PCFG, chunk, 2, device="cpu")
+    carry = list(resumed.state)
+    resumed.load_state(tmp_path / "st.npz")
+    assert all(a is b for a, b in zip(resumed.state, carry))
+    for a, b in zip(resumed.state, first.state):
+        assert torch.equal(a, b)
+    rest = [resumed.push(c) for c in chunks[5:-1]] + resumed.finish()
+    for o, ref in zip(rest, full[5:], strict=True):
+        for f in o._fields:
+            assert torch.equal(getattr(o, f), getattr(ref, f)), f
+    other = rt.BatchReacqStreamingRx(PCFG, chunk, 2, device="cpu")
+    other.state = first.state
+    assert all(a is b for a, b in zip(other.state, other._carry))
+    assert torch.equal(other.state.hist, first.state.hist)
+    assert int(_valid(rest, "ptrs").size) > 10
+
+
+def test_cpu_receiver_never_captures(monkeypatch):
+    """On the CPU every chunk step, full or partial, runs eagerly: no
+    capture is tried, and under a profiler ``ofdm.graph_steps`` keeps a 0
+    a step beside the step's detection and slot counters."""
+    def no_capture(*args):
+        raise AssertionError("a CPU receiver captured a CUDA graph")
+
+    monkeypatch.setattr(rt.ReacqStreamingRx, "_capture", no_capture)
+    chunk = 960
+    chunks, n_last, _ = _batch_chunks(chunk, 2, 60)
+    rx = rt.BatchReacqStreamingRx(PCFG, chunk, 2, device="cpu")
+    profiling.reset_counters()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            outs = [rx.push(c) for c in chunks[:4]]
+            outs.append(rx.push(chunks[4], n_real=chunk // 2))
+        assert profiling.kept("ofdm.graph_steps") == [0] * 5
+        assert profiling.counters()["ofdm.detections"] == (
+            sum(int(o.valid.sum()) for o in outs), 5)
+    finally:
+        profiling.reset_counters()
+    rx.finish()
+    assert rx._graph is None
+
+
+@pytest.mark.parametrize("make", [
+    lambda: rt.LegacyStreamingRx(PCFG, 960, device="cpu"),
+    lambda: streaming.ShardedReacqStreamingRx(
+        PCFG, 1920, pmesh.time_mesh(2, device="cpu"))],
+    ids=["legacy", "sharded"])
+def test_other_receivers_keep_the_eager_push(make, faded):
+    """The legacy and the sharded receivers step eagerly and take each new
+    carry as the step returns it: the shared front end's push, not the
+    reacq receiver's."""
+    rx = make()
+    assert type(rx).push is rt.EagerStreamingRx.push
+    assert not isinstance(rx, rt.ReacqStreamingRx)
+    before = rx.state
+    rx.push(_chunks_of(faded[1], rx.chunk_len)[0])
+    assert all(a is not b for a, b in zip(rx.state, before))
 
 
 # ---------------------------------------------------------------------------

@@ -163,7 +163,8 @@ def test_detection_and_slot_counters_hold_the_steps_values():
     assert found > 0
     assert profiling.counters() == {
         "ofdm.detections": (found, STEPS),
-        "ofdm.slots": (STEPS * STREAMS * det_max, STEPS)}
+        "ofdm.slots": (STEPS * STREAMS * det_max, STEPS),
+        "ofdm.graph_steps": (0, STEPS)}          # the CPU steps eagerly
 
 
 def test_tracker_counters_hold_the_steps_values():
@@ -222,7 +223,8 @@ def test_trace_resets_the_counters_and_writes_them_beside_the_trace(
         "ofdm.detections": {"total": sum(int(o.valid.sum()) for o in outs),
                             "records": STEPS},
         "ofdm.slots": {"total": STEPS * STREAMS * det_max,
-                       "records": STEPS}}
+                       "records": STEPS},
+        "ofdm.graph_steps": {"total": 0, "records": STEPS}}
     names = {e.get("name") for e in json.loads(
         traces[0].read_text())["traceEvents"]}
     assert {"ofdm.chunk_step", "ofdm.search", "ofdm.decide"} <= names
