@@ -631,7 +631,7 @@ def kernel_checks(cfg, batch, dev, cell) -> dict:
         cfg, *sync_search.sync_peaks(cfg, rxs, n_trials))
     win = equalize.data_windows(cfg, rxs, ptr, num_patterns)
     if cfg.pilot_grid == "none":
-        spec = sync.sync_spectrum_at(cfg, rxs, first, method="dft")
+        spec = sync.sync_spectrum_at(cfg, rxs, first)
         _, chan_full, _ = sync.estimate_channel(cfg, spec, delay)
         coeff = equalize.combined_coeff(cfg, delay, chan_full)
     else:       # the pilot equaliser gives K2 the rotation alone
@@ -668,9 +668,11 @@ def print_kernel_rows(cell, out) -> None:
 
 def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
     """The main path: chain_batch with every kernel, reps with the bits
-    flipped between reps; then kernel chain vs plain chain on one noise.
-    Every frame locks, the mean BER stays within max_ber (0: no bit
-    differs), and the kernel chain's bits are the plain chain's."""
+    flipped between reps; then the kernel chain vs the plain chain (the
+    same call on CPU copies of the bits and the noise: the kernels'
+    twins) on one noise.  Every frame locks, the mean BER stays within
+    max_ber (0: no bit differs), and the kernel chain's bits are the plain
+    chain's."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
@@ -726,8 +728,8 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
     ni = torch.randn(batch, n_samples, generator=gen, device=dev)
     noise = torch.complex(nr, ni)
     rk = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
-    rp = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
-                           plain=True)
+    rp = moved(chain.chain_batch(cfg, h, n_trials, num_patterns, bits.cpu(),
+                                 noise=noise.cpu()), dev)
     if not torch.equal(rk.hard_bits, rp.hard_bits):
         n_diff = int((rk.hard_bits != rp.hard_bits).sum())
         raise AssertionError(f"{cell}: kernel vs plain chain: {n_diff} bits "
@@ -862,12 +864,24 @@ def make_streams(cfg, batch, n_samples, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     bits = torch.randint(0, 2, (batch * frames, cfg.num_bits), generator=gen,
                          device=dev, dtype=torch.int32)
-    tx = txofdm.tx_frames(cfg, bits, path="kernel").reshape(batch, -1)
+    tx = txofdm.tx_frames(cfg, bits).reshape(batch, -1)
     clean = channel_conv.apply_channel_frames(tx, chain.loopback_taps(cfg),
                                               cfg.nfft)
     sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
     rx = channel.awgn(cfg, clean, sig_pow[:, None], generator=gen)
     return rx[:, :n_samples].contiguous(), bits.reshape(batch, frames, -1)
+
+
+def moved(v, dev):
+    """v (a tensor, or a tuple or NamedTuple of them) on device dev; what
+    is not a tensor as it is.  A call on CPU copies of its inputs runs the
+    kernels' plain twins: the card's run of the same call is held to it."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    if isinstance(v, tuple):
+        items = [moved(f, dev) for f in v]
+        return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+    return v
 
 
 def stack_outs(outs):
@@ -970,8 +984,7 @@ def graph_replay(cfg, chunks, cell) -> None:
     k, batch, chunk_len = chunks.shape
     rx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch)
     step = functools.partial(rt.reacq_step, cfg, n_real=chunk_len,
-                             det_max=rx.det_max, fast="kernel",
-                             demod_path="kernel")
+                             det_max=rx.det_max)
     rx.push(chunks[0])                                  # the capture
 
     def eager():
@@ -1028,8 +1041,7 @@ def same_as_whole(cfg, outs, stream, n_real, what) -> int:
 
     whole = stream_rx.rx_detections(
         cfg, stream, sync.n_trials_for(cfg, n_real),
-        max_det=n_real // (cfg.pattern_len * cfg.rx_b_len) + 2,
-        fast="kernel", demod_path="kernel")
+        max_det=n_real // (cfg.pattern_len * cfg.rx_b_len) + 2)
     nb = int(whole.count)
     v = outs.valid.reshape(-1)
     keep = v & (outs.ptrs.reshape(-1) <= whole.ptrs[:nb].max())
@@ -1128,17 +1140,17 @@ def serving_run(cfg, batch, chunk_len, k, dev, cell, gpu,
           f"{counts}, sync_search by route {routes}")
     check_detections(cfg, outs, bits, n_real, cell, max_bit_err)
 
-    # -- kernel path against plain path on the same streams -----------------
-    prx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch, fast="conv",
-                                   demod_path="dft")
+    # -- kernel path against plain path (CPU copies) on the same streams ----
+    prx = rt.BatchReacqStreamingRx(cfg, chunk_len, batch, device="cpu")
     before = kernels.launch_counts()
-    plain = cat_outs([prx.push_many(chunks), stack_outs(prx.finish())])
+    plain = moved(cat_outs([prx.push_many(chunks.cpu()),
+                            stack_outs(prx.finish())]), chunks.device)
     if kernels.launch_counts() != before:
         raise AssertionError(f"{cell}: the plain path launched a kernel")
     worst = same_outs(outs, plain, f"{cell}: kernel vs plain path",
                       float_atol=2e-4, skip=("peaks",))
     peak_err = float((outs.peaks - plain.peaks).abs().max())
-    print(f"{cell}: kernel path == plain path (conv, dft): ptrs, delays, "
+    print(f"{cell}: kernel path == plain path (the CPU twins): ptrs, delays, "
           f"valid, demod_ok, hard bits equal; phasors and chans within "
           f"{worst:.2e} (allowed 2e-4); peaks within {peak_err:.2e}")
     del plain
@@ -1232,7 +1244,7 @@ def step_inputs(cfg, streams, chunk_len, det_max) -> tuple:
     lag = rt.reacq_lag(cfg)
     ext = streams[:, chunk_len - lag:2 * chunk_len].contiguous()
     t_per = chunk_len // max(1, cfg.stride)
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, "kernel")
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per)
     local_ptrs = cfg.cp_len + max(1, cfg.stride) * torch.arange(t_per,
                                                                  device=dev)
     crossing = dmax_val > sync.gate_level(cfg)
@@ -1247,7 +1259,7 @@ def step_inputs(cfg, streams, chunk_len, det_max) -> tuple:
     _, (l_ptrs, delays, _), count, _ = select()
     valid = torch.arange(det_max, device=dev) < count[:, None]
     _, _, dwin, coeff = stream_rx.detection_rows(
-        cfg, ext, l_ptrs, delays, valid, ext.shape[-1], "dft")
+        cfg, ext, l_ptrs, delays, valid, ext.shape[-1])
     nd, nb = cfg.synch_dat[1], cfg.num_data_bins
     win = dwin.reshape(-1, cfg.nfft)
     coeff = coeff[:, :, None, :].expand(batch, det_max, nd, nb).reshape(
@@ -1271,8 +1283,9 @@ def config_of(source, changes):
 def noisy_chain_check(cfg, batch, dev, cell) -> None:
     """The chain at the config's own SNR, where frames carry bit errors:
     every frame locks, and on one noise tensor the kernel chain and the
-    plain chain decide at most 1e-4 of the bits otherwise (a phasor next to
-    a decision threshold may fall on either side)."""
+    plain chain (the same call on CPU copies) decide at most 1e-4 of the
+    bits otherwise (a phasor next to a decision threshold may fall on
+    either side)."""
     from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
 
     rng = np.random.default_rng(SEED + 5)
@@ -1286,8 +1299,8 @@ def noisy_chain_check(cfg, batch, dev, cell) -> None:
         torch.randn(batch, n_samples, generator=gen, device=dev))
     h = chain.loopback_taps(cfg)
     rk = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
-    rp = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise,
-                           plain=True)
+    rp = moved(chain.chain_batch(cfg, h, n_trials, num_patterns, bits.cpu(),
+                                 noise=noise.cpu()), dev)
     differ = float((rk.hard_bits != rp.hard_bits).float().mean())
     ber_k, ber_p = float(rk.ber.mean()), float(rp.ber.mean())
     if (not bool(rk.found.all()) or not bool(rp.found.all()) or
@@ -1481,10 +1494,11 @@ def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
     check_legacy_detections(cfg, outs, sent, n_real, want_fo,
                             every_block=not cfo_hz, cell=cell)
 
-    # -- K2 path against plain path, and push_many against pushes ------------
-    prx = make(demod_path="dft")
+    # -- K2 path against plain path (CPU copies), push_many against pushes --
+    prx = make(device="cpu")
     before = kernels.launch_counts()
-    plain = cat_outs([prx.push_many(chunks), stack_outs(prx.finish())])
+    plain = moved(cat_outs([prx.push_many(chunks.cpu()),
+                            stack_outs(prx.finish())]), dev)
     if kernels.launch_counts() != before:
         raise AssertionError(f"{cell}: the plain path launched a kernel")
     worst = same_outs(outs, plain, f"{cell}: K2 path vs plain path",
@@ -1530,8 +1544,8 @@ def legacy_run(table, case, fo_range, cfo_hz, dev, gpu, timed) -> tuple:
                 f"{what}: {name} differ by {err:.3e} of max(1, |value|) "
                 f"(largest |value| {float(y.abs().max()):.3e}, largest "
                 f"difference {float((x - y).abs().max()):.3e})")
-    print(f"{cell}: K2 path == plain path (dft): tables and masks equal, "
-          f"floats within {worst:.2e} (allowed 2e-4); push_many == {k} "
+    print(f"{cell}: K2 path == plain path (CPU copies): tables and masks "
+          f"equal, floats within {worst:.2e} (allowed 2e-4); push_many == {k} "
           f"pushes exactly; chunk by chunk == rx_frame_cfo on the whole "
           f"buffer ({nb} detections: pointers, delays and candidates equal, "
           f"channels of all and phasors and despread symbols of the "
@@ -1615,7 +1629,7 @@ def tracker_streams(cfg, batch, snr_db, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bits = torch.randint(0, 2, (batch, cfg.num_bits), generator=gen,
                          device=dev, dtype=torch.int32)
-    tx = txofdm.tx_frames(cfg, bits, path="kernel")
+    tx = txofdm.tx_frames(cfg, bits)
     clean = channel_conv.apply_channel_frames(tx, chain.loopback_taps(cfg),
                                               cfg.nfft)
     sig_pow = ((tx - tx.mean(1, keepdim=True)).abs() ** 2).mean(1)
@@ -1767,8 +1781,9 @@ def tracker_main_path(cfg, xs, bits, kind, cell) -> tuple:
 
 def tracker_plain(cfg, xs, steps, max_det, r, cell) -> tuple:
     """The plain path once, eager and timed: ``track_scan_plain`` and the
-    rest of ``track_frame`` on its outputs (K2's plain version "dft"); it
-    launches no kernel and equals the kernel path ``r`` (``same_track``).
+    rest of ``track_frame`` on CPU copies of its outputs (K2's plain
+    twin); it launches no kernel and equals the kernel path ``r``
+    (``same_track``).
     Returns (the plain scan, its ms, the float errors of r against it)."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import tracker as ktrk
@@ -1782,7 +1797,8 @@ def tracker_plain(cfg, xs, steps, max_det, r, cell) -> tuple:
                                  steps, max_det)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    p = tracker.track_result(cfg, xs, scan[1], demod_path="dft")
+    p = moved(tracker.track_result(cfg, xs.cpu(), moved(scan[1], "cpu")),
+              xs.device)
     if kernels.launch_counts() != before:
         raise AssertionError(f"{cell}: the plain path launched a kernel")
     errs = same_track(r, p, f"{cell}: kernel path vs plain path")
@@ -2345,14 +2361,14 @@ def split_check(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     bits = torch.randint(0, 2, (1, cfg.num_bits), generator=gen, device=dev,
                          dtype=torch.int32)
-    tx = txofdm.tx_frames(cfg, bits, path="kernel")
+    tx = txofdm.tx_frames(cfg, bits)
     x = channel.apply_channel(tx, chain.loopback_taps(cfg), cfg.nfft)[0]
     find, demod = split.make_split_rx(cfg, len(x))
     kernels.reset_launch_counts()
     a = find(x)
     b = demod(a.passthrough, a.ptrs[0], a.delays[0])
     counts = kernels.launch_counts()
-    mono = rxofdm.make_rx(cfg, len(x), fast="kernel", eq="kernel")(x)
+    mono = rxofdm.make_rx(cfg, len(x))(x)
     if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
                    "sync_search": 1, "equalize": 1} or
             int(a.count) != cfg.num_patterns or
@@ -2429,10 +2445,10 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
     a user builds it (``make_mimo_chain`` / ``make_stcode_chain``, on the
     card), timed over rounds of CHAIN_REPS steps; every frame locked with
     BER 0, one K4 launch a step on the direct route and no other kernel,
-    kernel path == plain path on one noise tensor, no host synchronisation
-    in a step; at the configuration's own SNR kernel and plain paths within
-    1e-4 of the bits; K4 against its plain versions at the step's search
-    shape (ZC slice 0).  Returns the cells' entries of the kernels line."""
+    kernel path == plain path (CPU copies) on one noise tensor, no host
+    synchronisation in a step; at the configuration's own SNR kernel and
+    plain paths within 1e-4 of the bits; K4 against its plain versions at
+    the step's search shape (ZC slice 0).  Returns the cells' entries of the kernels line."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.models import mimo
@@ -2488,7 +2504,8 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
                               torch.randn(batch, 2, n, generator=gen,
                                           device=dev))
         rk = step(bits, noise=noise)
-        rp = make(cfg, plain=True)(bits, noise=noise)
+        rp = moved(make(cfg, device="cpu")(bits.cpu(), noise=noise.cpu()),
+                   dev)
         for f in ("found", "lock_ptr", "delay_idx", "hard_bits"):
             if not torch.equal(getattr(rk, f), getattr(rp, f)):
                 raise AssertionError(f"{cell}: kernel vs plain path: {f} "
@@ -2515,7 +2532,8 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
 
         if own.snr_db != cfg.snr_db:
             rk = make(own)(bits, noise=noise)
-            rp = make(own, plain=True)(bits, noise=noise)
+            rp = moved(make(own, device="cpu")(bits.cpu(),
+                                               noise=noise.cpu()), dev)
             differ = float((rk.hard_bits != rp.hard_bits).float().mean())
             if (not bool(rk.found.all()) or not bool(rp.found.all()) or
                     differ > 1e-4):
@@ -2684,7 +2702,7 @@ def oracle_chain(cfg, batch, frames, dev, cell) -> float:
     kernels.reset_launch_counts()
     rxs = chain.transmit(cfg, chain.loopback_taps(cfg), bits, noise=noise)
     r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
-    tx = txofdm.tx_frames(cfg, bits[:frames], path="kernel")
+    tx = txofdm.tx_frames(cfg, bits[:frames])
     if is_qam:
         _, llr = modulation.maxlog_llr(r.phasors[:frames], cfg.modulation,
                                        1.0 / cfg.snr_linear)
@@ -2971,7 +2989,7 @@ def native_check(dev, gpu) -> tuple:
     samples, and pumped by a NativeChunker in chunks of 65280 into a
     ReacqStreamingRx on the card.  Its outputs equal those of the same
     chunks pushed from the card and, but for float rounding, those of the
-    plain receiver (conv, dft) on the ring's chunks; every whole pattern
+    plain receiver (CPU copies) on the ring's chunks; every whole pattern
     block is detected once with the sent bits, one K4 and one K2 launch a
     step; times of the whole path and of a step fed from the ring's host
     chunks.  Returns (cell, launch counts of the ring-fed run, K4 and K2
@@ -3012,12 +3030,13 @@ def native_check(dev, gpu) -> tuple:
     ref += direct.finish()
     got = stack_outs(outs)
     same_outs(got, stack_outs(ref), f"{cell}: ring-fed vs pushed directly")
-    plain_rx = rt.ReacqStreamingRx(cfg, chunk, fast="conv", demod_path="dft")
+    plain_rx = rt.ReacqStreamingRx(cfg, chunk, device="cpu")
     before = kernels.launch_counts()
-    plain = [plain_rx.push(c) for c in host_chunks] + plain_rx.finish()
+    plain = moved(stack_outs([plain_rx.push(c.cpu()) for c in host_chunks] +
+                             plain_rx.finish()), dev)
     if kernels.launch_counts() != before:
         raise AssertionError(f"{cell}: the plain receiver launched a kernel")
-    worst = same_outs(got, stack_outs(plain), f"{cell}: ring-fed kernel vs "
+    worst = same_outs(got, plain, f"{cell}: ring-fed kernel vs "
                       "plain receiver", float_atol=2e-4, skip=("peaks",))
     if (len(host_chunks) != k or chunker.staged or
             counts["sync_search"] != len(outs) or
@@ -3040,7 +3059,7 @@ def native_check(dev, gpu) -> tuple:
     busy, launches = profile(lambda j: prx.push(host_chunks[j % k]), cell)
     print(f"{cell}: {i} writes of at most {quantum} samples, {k} chunks "
           f"pumped; outputs == the chunks pushed from the card; kernel "
-          f"receiver == plain receiver (conv, dft) on the ring's chunks: "
+          f"receiver == plain receiver (CPU copies) on the ring's chunks: "
           f"ptrs, delays, valid, demod_ok, hard bits equal, phasors and "
           f"chans within {worst:.2e} (allowed 2e-4); launches "
           f"{counts}; the whole path (ring writes, pumps, pushes, flush) "
@@ -3151,7 +3170,7 @@ def sharded_rx_run(dev, gpu) -> list:
     """The time-sharded RX (``parallel/sharded.py``) on one frame made on
     the card (K1, K3, AWGN 100 dB) at each SHARDED_RX shape: one K4 and one
     K2 launch a call on the route the rule names; found, lock, delay and
-    hard bits equal to the plain path's (conv, dft) and to the
+    hard bits equal to the plain path's (CPU copies) and to the
     single-device ``rx_frame`` on the kernels, phasors within 2e-4 and the
     peak within K4's tolerance, the bits the sent ones; K4 and K2 against
     their plain versions on what the sharded call handed them; ms a call
@@ -3190,12 +3209,11 @@ def sharded_rx_run(dev, gpu) -> list:
                 raise AssertionError(f"{cell}: launches {counts}, by route "
                                      f"{routes}, expected one K4 ({want}) "
                                      "and one K2")
-            plain = sharded.make_sharded_rx(cfg, n, mesh.time_mesh(t),
-                                            fast="conv", demod_path="dft")(x)
+            plain = moved(sharded.make_sharded_rx(
+                cfg, n, mesh.time_mesh(t, device="cpu"))(x.cpu()), dev)
 
             def single(i=0):
-                return rxofdm.rx_frame(cfg, x, n_trials, num_patterns,
-                                       fast="kernel", eq="kernel")
+                return rxofdm.rx_frame(cfg, x, n_trials, num_patterns)
 
             worst = peak_err = 0.0
             peak_tol = (dict(atol=2e-3, rtol=0.0) if cfg.stride == 1

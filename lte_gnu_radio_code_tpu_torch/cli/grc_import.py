@@ -23,7 +23,7 @@ import json
 import numpy as np
 import torch
 
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -128,8 +128,7 @@ def _run(plan, args, device):
 
     if rx_sig is not None:
         x = as_samples(rx_sig, device)
-        r = rxofdm.make_rx(cfg, x.shape[0], fast=kernel_default(device, None),
-                           eq=kernel_default(device, None))(x)
+        r = rxofdm.make_rx(cfg, x.shape[0])(x)
         res = {"mode": "rx_pickle", "found": bool(r.found),
                "lock_ptr": int(r.lock_ptr)}
         if args.bits_pickle:

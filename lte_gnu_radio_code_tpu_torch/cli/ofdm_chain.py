@@ -34,7 +34,7 @@ import json
 import numpy as np
 import torch
 
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 
 
 def build_config(args):
@@ -153,9 +153,7 @@ def main(argv=None):
 
     if args.tx_pickle:
         rx = as_samples(load_pickle_iq(args.tx_pickle).ravel(), device)
-        result = rxofdm.make_rx(cfg, rx.shape[0],
-                                fast=kernel_default(device, None),
-                                eq=kernel_default(device, None))(rx)
+        result = rxofdm.make_rx(cfg, rx.shape[0])(rx)
         out = {"found": bool(result.found), "lock_ptr": int(result.lock_ptr),
                "delay_idx": int(result.delay_idx)}
         if args.bits_pickle:

@@ -20,7 +20,7 @@ import pathlib
 import numpy as np
 import torch
 
-from ..utils.device import kernel_default, resolve_device
+from ..utils.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,8 +57,7 @@ def main(argv=None):
         bits = torch.as_tensor(np.random.default_rng(args.seed + i).integers(
             0, 2, (1, cfg.num_bits), dtype=np.int32), device=device)
         if i == 0:
-            tx = txofdm.tx_frame(cfg, bits[0],
-                                 path=kernel_default(device, None))
+            tx = txofdm.tx_frame(cfg, bits[0])
             save_pickle_iq(pathlib.Path(args.out_dir) / "4g5g_input_data.pckl",
                            tx.cpu().numpy()[None, :])
         n_trials, num_patterns = rxofdm.plan_rx(cfg,

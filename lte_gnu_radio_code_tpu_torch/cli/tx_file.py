@@ -27,7 +27,7 @@ import pathlib
 
 import numpy as np
 
-from ..utils.device import kernel_default, resolve_device
+from ..utils.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,8 +69,7 @@ def generate(case: int, num_symbols, seed: int, device) -> np.ndarray:
     cfg = config_from_profile(SDR_PROFILES[case], num_symbols=num_symbols)
     bits = torch.as_tensor(np.random.default_rng(seed).integers(
         0, 2, cfg.num_bits, dtype=np.int32), device=device)
-    return txofdm.tx_frame(cfg, bits, path=kernel_default(device, None)
-                           ).cpu().numpy()
+    return txofdm.tx_frame(cfg, bits).cpu().numpy()
 
 
 def main(argv=None):

@@ -99,11 +99,8 @@ def data_windows(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
 def derotation(cfg: OFDMConfig, delay_idx, device) -> torch.Tensor:
     """[..., B] timing derotation e^{+j 2 pi d b_k / N} of each lock's delay
     d on the data bins."""
-    bins = device_table(sync_ops._bins, device, cfg.nfft, cfg.num_data_bins)
-    delay = torch.as_tensor(delay_idx, device=device)
-    return torch.exp((1j * 2.0 * np.pi / cfg.nfft) *
-                     delay.to(torch.float32)[..., None] *
-                     bins.to(torch.float32))
+    return sync_ops.derotation(cfg.nfft, delay_idx, device_table(
+        sync_ops._bins, device, cfg.nfft, cfg.num_data_bins))
 
 
 def combined_coeff(cfg: OFDMConfig, delay_idx,
@@ -135,7 +132,8 @@ def demod_frames(cfg: OFDMConfig, win: torch.Tensor, coeff: torch.Tensor,
 def equalize_data_symbols(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
                           delay_idx, chan_full: torch.Tensor,
                           num_patterns: int) -> torch.Tensor:
-    """Drop-in for ops.sync.equalize_data_symbols through K2: x [..., n],
-    one lock per frame, one launch for every frame."""
+    """FFT + power norm + timing derotation + MMSE EQ of every data symbol
+    at each frame's lock through K2 (``sync.py:equalize_data_symbols``):
+    x [..., n], one lock per frame, one launch for every frame."""
     win = data_windows(cfg, x, lock_ptr, num_patterns)
     return demod_frames(cfg, win, combined_coeff(cfg, delay_idx, chan_full))

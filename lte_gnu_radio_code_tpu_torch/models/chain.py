@@ -87,17 +87,15 @@ def make_chain(cfg: OFDMConfig, **rx_kwargs):
 
 def transmit(cfg: OFDMConfig, h: np.ndarray, bits: torch.Tensor, *,
              generator: torch.Generator | None = None,
-             noise: torch.Tensor | None = None,
-             plain: bool = False) -> torch.Tensor:
+             noise: torch.Tensor | None = None) -> torch.Tensor:
     """The TX and channel half of :func:`chain_batch`: bits [B, num_bits]
     -> received samples [B, frame_len + nfft - 1].  TX is one K1 launch
     over every symbol of the batch, the channel one K3 launch (any CIR of
-    <= 16 taps), AWGN per frame with a per-frame signal power; ``plain``
-    takes TX through torch.fft and the channel through its plain form.
-    Span ``ofdm.tx``."""
+    <= 16 taps; a longer one in torch), AWGN per frame with a per-frame
+    signal power.  Span ``ofdm.tx``."""
     with profiling.span("ofdm.tx"):
-        tx = txofdm.tx_frames(cfg, bits, path=None if plain else "kernel")
-        if plain or len(h) > channel_conv.MAX_TAPS:
+        tx = txofdm.tx_frames(cfg, bits)
+        if len(h) > channel_conv.MAX_TAPS:
             clean = chan_ops.apply_channel(tx, h, max_impulse=cfg.nfft)
         else:
             clean = channel_conv.apply_channel_frames(tx, h, cfg.nfft)
@@ -109,22 +107,18 @@ def transmit(cfg: OFDMConfig, h: np.ndarray, bits: torch.Tensor, *,
 def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
                 num_patterns: int, bits: torch.Tensor, *,
                 generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None,
-                plain: bool = False) -> BatchChainResult:
-    """Whole-batch chain step, the form ``bench.py:chain_batch`` times on
-    the all-kernel path: bits [B, num_bits] -> per-frame BER and lock.
+                noise: torch.Tensor | None = None) -> BatchChainResult:
+    """Whole-batch chain step, the form ``bench.py:chain_batch`` times:
+    bits [B, num_bits] -> per-frame BER and lock.
 
     TX and channel through :func:`transmit` (K1 and K3), and RX through
     ``rxofdm.rx_frames_batch`` (K4 and K2), for any modulation and pilot
-    grid.  ``plain`` swaps every
-    kernel for its plain twin, with TX through torch.fft.  Span
+    grid: the kernels on a CUDA device, their plain twins on the CPU.  Span
     ``ofdm.chain_step``, the root of the stages; the BER is in its own
     time."""
     with profiling.span("ofdm.chain_step"):
-        rxs = transmit(cfg, h, bits, generator=generator, noise=noise,
-                       plain=plain)
-        r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns,
-                                   plain=plain)
+        rxs = transmit(cfg, h, bits, generator=generator, noise=noise)
+        r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
         return BatchChainResult(_ber(r.hard_bits, bits), r.found,
                                 r.hard_bits, r.lock_ptr, r.delay_idx,
                                 r.phasors)

@@ -21,7 +21,7 @@ import torch
 from ..kernels import equalize
 from ..ops import cfo as cfo_ops
 from ..ops import sync
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 from ..utils.params import OFDMConfig
 from . import stream_rx
 
@@ -40,27 +40,26 @@ class LegacyRxResult(NamedTuple):
 def demod_after_detections(cfg: OFDMConfig, x: torch.Tensor,
                            start: torch.Tensor, ok: torch.Tensor,
                            delays: torch.Tensor, fo_sel: torch.Tensor,
-                           chans: torch.Tensor, bank: torch.Tensor,
-                           demod_path: str | None) -> torch.Tensor:
+                           chans: torch.Tensor,
+                           bank: torch.Tensor) -> torch.Tensor:
     """The one data symbol of each detection: the window at ``start``
     [..., D] (0 where not ``ok``) re-mixed by the detection's winning CFO
     candidate, then the power-normalised data-bin spectrum times rot * MMSE
     gain * ok.  That is K2 with one coefficient row a window: the windows
-    are mixed first and ``ok`` is folded into the row.  ``demod_path`` as
-    in ``stream_rx.demod_rows``.  Returns phasors [..., D, B]."""
+    are mixed first and ``ok`` is folded into the row
+    (``stream_rx.demod_rows``).  Returns phasors [..., D, B]."""
     rel = torch.arange(cfg.nfft, device=x.device)
     win = sync.windows_at(x, start, rel) * cfo_ops.bank_select(bank, fo_sel)
     coeff = equalize.combined_coeff(cfg, delays, chans) * ok[..., None]
-    return stream_rx.demod_rows(cfg, win, coeff, demod_path)
+    return stream_rx.demod_rows(cfg, win, coeff)
 
 
 def rx_frame_cfo(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
-                 fo_range=(0.0,), dsss: int = 1, max_det: int = 100,
-                 demod_path: str | None = None) -> LegacyRxResult:
+                 fo_range=(0.0,), dsss: int = 1,
+                 max_det: int = 100) -> LegacyRxResult:
     """Multi-detection CFO-search RX over a sample buffer x [..., n]
-    (``legacy_rx.py:rx_frame_cfo``).  ``demod_path`` None takes the data
-    spectra from torch.fft, "dft" from the product with the DFT basis,
-    "kernel" from K2 (one launch over the detection table)."""
+    (``legacy_rx.py:rx_frame_cfo``); the data demod is one K2 call over
+    the detection table."""
     bank = cfo_ops.bank_on(cfg, fo_range, x.device)
     dmax_val, delay_win, fo_win = cfo_ops.cfo_search_scan(
         cfg, x, n_trials, bank)
@@ -79,21 +78,18 @@ def rx_frame_cfo(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
     ok = valid & (start + cfg.nfft - 1 < x.shape[-1])
     phasors = demod_after_detections(
         cfg, x, torch.where(ok, start, 0), ok, delays, fo_sel, chan_full,
-        bank, demod_path)
+        bank)
     return LegacyRxResult(ptrs, delays, peaks, fo_sel, count, chan_full,
                           phasors, cfo_ops.dsss_despread(phasors, dsss))
 
 
 def make_legacy_rx(cfg: OFDMConfig, n_samples: int, fo_range=(0.0,),
-                   dsss: int = 1, max_det: int = 100, device=None,
-                   demod_path: str | None = None):
+                   dsss: int = 1, max_det: int = 100, device=None):
     """rx_frame_cfo bound to a buffer length (``legacy_rx.py:make_legacy_rx``).
     The returned function takes the samples (a tensor or anything numpy
-    takes) to the CUDA device, or to ``device``; on a CUDA device the demod
-    defaults to K2."""
+    takes) to the CUDA device, or to ``device``."""
     device = resolve_device(device)
     fn = functools.partial(
         rx_frame_cfo, cfg, n_trials=sync.n_trials_for(cfg, n_samples),
-        fo_range=tuple(fo_range), dsss=dsss, max_det=max_det,
-        demod_path=kernel_default(device, demod_path))
+        fo_range=tuple(fo_range), dsss=dsss, max_det=max_det)
     return lambda x: fn(as_samples(x, device))

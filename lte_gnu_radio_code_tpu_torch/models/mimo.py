@@ -236,7 +236,7 @@ def _inv2x2(h: torch.Tensor) -> torch.Tensor:
 
 
 def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
-           num_patterns: int, plain: bool):
+           num_patterns: int):
     """What both modes share: the search on RX antenna 0 against slice 0,
     the 2x2 LS channel estimate from the two time-orthogonal pilots (raw:
     a pilot is silent on the other antenna, so normalising its window would
@@ -245,19 +245,15 @@ def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     chan_freq [..., 2, 2, nfft], data [..., 2, num_patterns*nd, B])."""
     dev = y.device
     cfg1 = search_config(cfg)
-    search = (sync_search.sync_peaks_plain if plain
-              else sync_search.sync_peaks)
-    peaks = search(cfg1, y[..., 0, :].contiguous(), n_trials,
-                   zc=_search_zc(cfg))
+    peaks = sync_search.sync_peaks(cfg1, y[..., 0, :].contiguous(), n_trials,
+                                   zc=_search_zc(cfg))
     ptr, delay, _, found, _ = sync.lock_from_peaks(cfg1, *peaks)
 
     seg = cfg.num_synch_bins
     synch_bins = sync._bins_on(dev, cfg.nfft, seg)
     data_bins = sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
-    d = delay.to(torch.float32)[..., None]
-    k = 1j * 2.0 * np.pi / cfg.nfft
-    rot = torch.exp(k * d * synch_bins.to(torch.float32))
-    rot_d = torch.exp(k * d * data_bins.to(torch.float32))
+    rot = sync.derotation(cfg.nfft, delay, synch_bins)
+    rot_d = sync.derotation(cfg.nfft, delay, data_bins)
     starts = ptr[..., None].expand(*y.shape[:-1])      # one per RX antenna
 
     win = sync.windows_at(y, starts, device_table(_pilot_offsets, dev, cfg))
@@ -296,14 +292,12 @@ def _hard(cfg: OFDMConfig, ph: torch.Tensor) -> torch.Tensor:
 
 
 def rx_frame_mimo(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
-                  num_patterns: int, plain: bool = False) -> MimoRxResult:
+                  num_patterns: int) -> MimoRxResult:
     """[..., 2, n] received -> two demodulated streams
     (``mimo.py:rx_frame_mimo``): per-bin 2x2 LMMSE W = (H^H H + I/snr)^-1
-    H^H, then each stream scaled to unit power.  ``plain`` runs the
-    search's plain twin instead of K4 (what the kernel path is held to)."""
+    H^H, then each stream scaled to unit power."""
     _check(cfg)
-    ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns,
-                                         plain)
+    ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns)
     dev = y.device
     hd = chan[..., sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
     hd = hd.movedim(-1, -3)                             # [..., B, rx, tx]
@@ -317,14 +311,13 @@ def rx_frame_mimo(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
 
 
 def rx_frame_stcode(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
-                    num_patterns: int, plain: bool = False) -> StcRxResult:
+                    num_patterns: int) -> StcRxResult:
     """[..., 2, n] received -> one Alamouti-combined stream
     (``mimo.py:rx_frame_stcode``): per bin and pair, over both RX antennas,
     s0 = sum conj(h_r0) y_r(t) + h_r1 conj(y_r(t+1)), s1 = sum conj(h_r1)
     y_r(t) - h_r0 conj(y_r(t+1)), over sum |h|^2 + 2/snr."""
     _check_stc(cfg)
-    ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns,
-                                         plain)
+    ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns)
     nd, nb = cfg.synch_dat[1], cfg.num_data_bins
     pairs = fd.reshape(*fd.shape[:-2], num_patterns, nd // 2, 2, nb)
     y_t, y_t1 = pairs[..., 0, :], pairs[..., 1, :]      # [..., rx, K, P, B]
@@ -347,7 +340,7 @@ def _ber(hard: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return (hard[..., :nb] != bits[..., :nb]).to(torch.float32).mean(-1)
 
 
-def _make_chain(cfg: OFDMConfig, channel: str, device, plain: bool, tx, rx):
+def _make_chain(cfg: OFDMConfig, channel: str, device, tx, rx):
     dev = resolve_device(device)
     n = cfg.frame_len + cfg.nfft - 1
     n_trials, num_patterns = plan(cfg, n)
@@ -361,15 +354,14 @@ def _make_chain(cfg: OFDMConfig, channel: str, device, plain: bool, tx, rx):
         sig_pow = (sig.abs() ** 2).mean((-2, -1))
         y = chan_ops.awgn(cfg, clean, sig_pow[..., None, None],
                           generator=generator, noise=noise)
-        r = rx(cfg, y, n_trials, num_patterns, plain=plain)
+        r = rx(cfg, y, n_trials, num_patterns)
         return MimoChainResult(_ber(r.hard_bits, bits), r.found, r.lock_ptr,
                                r.delay_idx, r.hard_bits)
 
     return step
 
 
-def make_mimo_chain(cfg: OFDMConfig, channel: str = "Fading", device=None,
-                    plain: bool = False):
+def make_mimo_chain(cfg: OFDMConfig, channel: str = "Fading", device=None):
     """The 2x2 SpMult loopback (``mimo.py:make_mimo_chain``): step(bits
     [..., 2, num_bits], generator= or noise= [..., 2, frame_len + nfft -
     1]) -> MimoChainResult with the BER of each stream.  TX, the 2x2
@@ -378,18 +370,17 @@ def make_mimo_chain(cfg: OFDMConfig, channel: str = "Fading", device=None,
     the JAX chain cuts it at frame_len + taps - 1 and searches as many
     trials, reading its last sample again past the end), AWGN at the
     config's SNR over each frame's mean TX power, RX; on the CUDA device
-    unless ``device`` says otherwise, K4 for the search unless
-    ``plain``."""
+    unless ``device`` says otherwise."""
     _check(cfg)
-    return _make_chain(cfg, channel, device, plain, tx_frame_mimo,
+    return _make_chain(cfg, channel, device, tx_frame_mimo,
                        rx_frame_mimo)
 
 
-def make_stcode_chain(cfg: OFDMConfig, channel: str = "Fading", device=None,
-                      plain: bool = False):
+def make_stcode_chain(cfg: OFDMConfig, channel: str = "Fading",
+                      device=None):
     """The 2x2 Alamouti loopback (``mimo.py:make_stcode_chain``):
     step(bits [..., num_bits], generator= or noise=) -> MimoChainResult, as
     :func:`make_mimo_chain`."""
     _check_stc(cfg)
-    return _make_chain(cfg, channel, device, plain, tx_frame_stcode,
+    return _make_chain(cfg, channel, device, tx_frame_stcode,
                        rx_frame_stcode)

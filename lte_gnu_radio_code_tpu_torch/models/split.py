@@ -18,7 +18,7 @@ import torch
 
 from ..kernels import equalize
 from ..ops import modulation, sync
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 from ..utils.params import OFDMConfig
 from . import stream_rx
 from .rxofdm import plan_rx
@@ -33,13 +33,10 @@ class SynchIndexResult(NamedTuple):
 
 
 def find_synch_index(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
-                     max_det: int = 100,
-                     fast: str | None = None) -> SynchIndexResult:
-    """Stage A only: the search and the multi-detection table
-    (``split.py:find_synch_index``).  ``fast`` as in ``rxofdm.rx_frame``:
-    None / "ifft" (the JAX package's form), "exact", "conv" or "kernel"
-    (K4)."""
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, x, n_trials, fast)
+                     max_det: int = 100) -> SynchIndexResult:
+    """Stage A only: the search (K4) and the multi-detection table
+    (``split.py:find_synch_index``)."""
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, x, n_trials)
     ptrs, (delays, peaks), count = sync.refractory_detect(
         cfg, dmax_val, (dmax_ind, dmax_val), max_det)
     return SynchIndexResult(x, ptrs, delays, peaks.to(torch.float32), count)
@@ -52,43 +49,32 @@ class ChanEstResult(NamedTuple):
 
 
 def channel_estimate_demod(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
-                           delay_idx, num_patterns: int,
-                           eq: str | None = None) -> ChanEstResult:
+                           delay_idx, num_patterns: int) -> ChanEstResult:
     """Stage B given a sync lock (``split.py:channel_estimate_demod``): the
-    channel estimate at the lock, then every pattern block equalised.
-    ``eq`` None runs the FFT forms, "kernel" K2 (and the lock spectrum as a
-    product with the synch-bin DFT basis, as ``rx_frame`` pairs them)."""
-    if eq not in (None, "kernel"):
-        raise ValueError(f"unknown equaliser path {eq!r}")
+    channel estimate at the lock, then every pattern block equalised by K2,
+    as in ``rx_frame``."""
     lock_ptr = torch.as_tensor(lock_ptr, device=x.device)
     trial = torch.div(lock_ptr - cfg.cp_len, max(1, cfg.stride),
                       rounding_mode="floor")
-    spec = sync.sync_spectrum_at(
-        cfg, x, trial, method="dft" if eq == "kernel" else None)
+    spec = sync.sync_spectrum_at(cfg, x, trial)
     _, chan_full, _ = sync.estimate_channel(cfg, spec, delay_idx)
-    equalise = (equalize.equalize_data_symbols if eq == "kernel"
-                else sync.equalize_data_symbols)
-    phasors = equalise(cfg, x, lock_ptr, delay_idx, chan_full, num_patterns)
+    phasors = equalize.equalize_data_symbols(cfg, x, lock_ptr, delay_idx,
+                                             chan_full, num_patterns)
     hard, _, _ = modulation.qpsk_llr(phasors)
     return ChanEstResult(phasors, hard, chan_full)
 
 
 def make_split_rx(cfg: OFDMConfig, n_samples: int, max_det: int = 100,
-                  device=None, fast: str | None = None,
-                  eq: str | None = None):
+                  device=None):
     """(find_synch_index, channel_estimate_demod) bound to a buffer length
     (``split.py:make_split_rx``).  Both take their samples to the CUDA
-    device, or to ``device``; on a CUDA device the search defaults to K4
-    and the demod to K2, on the CPU to the JAX package's "ifft" search and
-    FFT demod."""
+    device, or to ``device``."""
     device = resolve_device(device)
     n_trials, num_patterns = plan_rx(cfg, n_samples)
     f1 = functools.partial(find_synch_index, cfg, n_trials=n_trials,
-                           max_det=max_det,
-                           fast=kernel_default(device, fast))
+                           max_det=max_det)
     f2 = functools.partial(channel_estimate_demod, cfg,
-                           num_patterns=num_patterns,
-                           eq=kernel_default(device, eq))
+                           num_patterns=num_patterns)
     return (lambda x: f1(as_samples(x, device)),
             lambda x, lock_ptr, delay_idx: f2(as_samples(x, device),
                                               lock_ptr, delay_idx))

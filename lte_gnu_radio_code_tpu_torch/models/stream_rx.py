@@ -11,12 +11,12 @@ and channel changes over a replayed stream.
 Every function takes leading stream dimensions (x [..., n], one detection
 table [..., max_det] per stream) and keeps static shapes with a ``valid``
 mask: nothing is compacted on the device and nothing waits for the host.
-The sync search is one call over all streams (K4 with ``fast="kernel"``)
-and the per-detection demod one call over the flattened
-[streams*max_det*nd, nfft] windows with one coefficient row per window (K2
-with ``demod_path="kernel"``).  Hard bits are the reference's per-rail
-decision for QPSK and the max-log decision, on phasors with the MMSE
-amplitude bias taken out, for any other modulation.
+The sync search is one K4 call over all streams and the per-detection
+demod one K2 call over the flattened [streams*max_det*nd, nfft] windows
+with one coefficient row per window; on the CPU each is its plain twin.
+Hard bits are the reference's per-rail decision for QPSK and the max-log
+decision, on phasors with the MMSE amplitude bias taken out, for any other
+modulation.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import equalize, sync_search
-from ..ops import fast_sync, modulation, sync
+from ..ops import modulation, sync
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
 
@@ -72,34 +72,20 @@ def hard_decide(cfg: OFDMConfig, phasors: torch.Tensor) -> torch.Tensor:
         *phasors.shape[:-1], -1)
 
 
-def detect_trials(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
-                  fast: str | None = None):
+def detect_trials(cfg: OFDMConfig, x: torch.Tensor, n_trials: int):
     """Per-trial (peak, delay) over the sync search of x [..., n]
     (``stream_rx.py:detect_trials``): (dmax_val [..., p] f32, dmax_ind
-    [..., p] i32).  ``fast`` as in ``rxofdm.rx_frame``: None / "ifft",
-    "exact", "conv" or "kernel" (K4 in its peaks form, one launch for every
-    stream, the reduction inside it).  Peak and delay come from one
-    reduction; ties go to the first delay, as jnp.argmax."""
-    fast = fast or "ifft"
-    if fast in ("ifft", "exact"):
-        corr = sync.corr_abs_from_spectra(
-            cfg, sync.sync_spectra(cfg, x, n_trials), fast)
-    elif fast == "conv":
-        corr = fast_sync.sync_corr_abs_fast(cfg, x, n_trials)
-    elif fast == "kernel":
-        return sync_search.sync_peaks(cfg, x, n_trials)
-    else:
-        raise ValueError(f"unknown sync path {fast!r}")
-    dmax_val, dmax_ind = corr.max(-1)
-    return dmax_val, dmax_ind.to(torch.int32)
+    [..., p] i32), K4 in its peaks form, one launch for every stream, the
+    reduction inside it.  Ties go to the first delay, as jnp.argmax."""
+    return sync_search.sync_peaks(cfg, x, n_trials)
 
 
 def detection_rows(cfg: OFDMConfig, ext: torch.Tensor,
                    ptrs_rel: torch.Tensor, delays: torch.Tensor,
-                   valid: torch.Tensor, n_readable, method: str | None):
+                   valid: torch.Tensor, n_readable):
     """What the demod of a detection table needs, gathered at the
     detections' pointers: the channel estimate of each detection from its
-    own synch spectrum (``method`` as in ``sync.sync_spectrum_at``), whether
+    own synch spectrum (``sync.sync_spectrum_at_ptr``), whether
     its data windows lie inside the n_readable real samples, the windows,
     and one coefficient row per detection in which the derotation, the MMSE
     gain and the demod_ok mask are folded.  Empty slots sit at pointer 0
@@ -109,7 +95,7 @@ def detection_rows(cfg: OFDMConfig, ext: torch.Tensor,
     [..., max_det, nd, nfft], coeff [..., max_det, B])."""
     m0, nd = cfg.m_synch, cfg.synch_dat[1]
     safe_ptr = torch.where(valid, ptrs_rel, 0).to(torch.int64)
-    spec = sync.sync_spectrum_at_ptr(cfg, ext, safe_ptr, method=method)
+    spec = sync.sync_spectrum_at_ptr(cfg, ext, safe_ptr)
     _, chans, _ = sync.estimate_channel(cfg, spec, delays.to(torch.int64))
     chans = chans * valid[..., None]
     n_read = sync.scalar_like(n_readable, ext, torch.int64)
@@ -124,50 +110,37 @@ def detection_rows(cfg: OFDMConfig, ext: torch.Tensor,
     return chans, demod_ok, dwin, coeff
 
 
-def demod_rows(cfg: OFDMConfig, win: torch.Tensor, coeff: torch.Tensor,
-               demod_path: str | None) -> torch.Tensor:
+def demod_rows(cfg: OFDMConfig, win: torch.Tensor,
+               coeff: torch.Tensor) -> torch.Tensor:
     """Power-normalised data-bin spectra of the windows win [..., nfft]
     times coeff, one row [B] for every window or one row per window
-    [..., B]: -> [..., B].  ``demod_path`` None takes the spectra from
-    torch.fft, "dft" from the product with the DFT basis
-    (``equalize.demod_windows_plain``), "kernel" from K2: one launch over
-    the flattened, contiguous [rows, nfft] windows."""
+    [..., B]: -> [..., B], from K2: one launch over the flattened,
+    contiguous [rows, nfft] windows."""
     nfft, nb = cfg.nfft, cfg.num_data_bins
-    if demod_path is None:
-        fd = torch.fft.fft(win, nfft, dim=-1)[
-            ..., sync._bins_on(win.device, nfft, nb)]
-        power = (fd.abs() ** 2).sum(-1, keepdim=True)
-        return fd * torch.sqrt(nb / power.clamp_min(1e-30)) * coeff
-    if demod_path not in ("dft", "kernel"):
-        raise ValueError(f"unknown demod path {demod_path!r}")
-    demod = (equalize.demod_windows if demod_path == "kernel"
-             else equalize.demod_windows_plain)
     if coeff.ndim > 1:
         coeff = coeff.expand(*win.shape[:-1], nb).reshape(-1, nb)
-    return demod(cfg, win.reshape(-1, nfft), coeff.contiguous()).reshape(
-        *win.shape[:-1], nb)
+    return equalize.demod_windows(
+        cfg, win.reshape(-1, nfft), coeff.contiguous()).reshape(
+            *win.shape[:-1], nb)
 
 
 def demod_detections(cfg: OFDMConfig, ext: torch.Tensor,
                      ptrs_rel: torch.Tensor, delays: torch.Tensor,
-                     valid: torch.Tensor, n_readable,
-                     demod_path: str | None = None):
+                     valid: torch.Tensor, n_readable):
     """Per-detection channel estimate + pattern-block demod, one batch over
     every stream and detection slot (``stream_rx.py:demod_detections``).
 
     ext [..., n] sample buffers; ptrs_rel, delays, valid [..., max_det]
     (pointers relative to ext[..., 0]); n_readable (scalar or [...]) the
-    real samples of ext.  ``demod_path`` as in :func:`demod_rows`; with
-    "kernel" K2 gets [streams*max_det*nd, nfft] windows with one
-    coefficient row per window.  Empty slots run too; none is skipped, so
-    no count leaves the device.
+    real samples of ext.  K2 gets [streams*max_det*nd, nfft] windows with
+    one coefficient row per window.  Empty slots run too; none is skipped,
+    so no count leaves the device.
 
     Returns (chans [..., max_det, nfft], phasors [..., max_det, nd, B],
     demod_ok [..., max_det])."""
     chans, demod_ok, dwin, coeff = detection_rows(
-        cfg, ext, ptrs_rel, delays, valid, n_readable,
-        method=None if demod_path is None else "dft")
-    phasors = demod_rows(cfg, dwin, coeff[..., None, :], demod_path)
+        cfg, ext, ptrs_rel, delays, valid, n_readable)
+    phasors = demod_rows(cfg, dwin, coeff[..., None, :])
     if cfg.modulation != "QPSK":
         # the MMSE amplitude bias goes before a QAM grid decision
         bins = sync._bins_on(ext.device, cfg.nfft, cfg.num_data_bins)
@@ -177,26 +150,25 @@ def demod_detections(cfg: OFDMConfig, ext: torch.Tensor,
 
 
 def rx_detections(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,
-                  max_det: int = 100, fast: str | None = None,
-                  demod_path: str | None = None) -> DetectionsOut:
+                  max_det: int = 100) -> DetectionsOut:
     """Whole-buffer multi-detection RX of x [..., n]
     (``stream_rx.py:rx_detections``); max_det mirrors the reference's
     100-row detection table."""
-    dmax_val, dmax_ind = detect_trials(cfg, x, n_trials, fast)
+    dmax_val, dmax_ind = detect_trials(cfg, x, n_trials)
     ptrs, (delays, peaks), count = sync.refractory_detect(
         cfg, dmax_val, (dmax_ind, dmax_val), max_det)
     valid = torch.arange(max_det, device=x.device) < count[..., None]
     chans, phasors, demod_ok = demod_detections(
-        cfg, x, ptrs, delays, valid, x.shape[-1], demod_path=demod_path)
+        cfg, x, ptrs, delays, valid, x.shape[-1])
     return DetectionsOut(ptrs=ptrs, delays=delays, peaks=peaks, count=count,
                          valid=valid, demod_ok=demod_ok, chans=chans,
                          phasors=phasors,
                          hard_bits=hard_decide(cfg, phasors))
 
 
-def make_rx_detections(cfg: OFDMConfig, n_samples: int, max_det: int = 100,
-                       **kwargs):
-    """rx_detections bound to a buffer length; kwargs forward to it."""
+def make_rx_detections(cfg: OFDMConfig, n_samples: int,
+                       max_det: int = 100):
+    """rx_detections bound to a buffer length."""
     return functools.partial(rx_detections, cfg,
                              n_trials=sync.n_trials_for(cfg, n_samples),
-                             max_det=max_det, **kwargs)
+                             max_det=max_det)

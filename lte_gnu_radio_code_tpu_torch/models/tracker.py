@@ -59,7 +59,7 @@ import torch
 from ..kernels import tracker as tracker_kernel
 from ..ops import modulation, sync
 from ..ops.zadoff_chu import zc_for_config
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 from ..utils.params import OFDMConfig, used_bins
 from ..utils.tables import device_table
 from . import stream_rx
@@ -316,58 +316,51 @@ def demod_track_table(cfg: OFDMConfig, x: torch.Tensor, ptrs_local,
     ok = det_valid[..., None] & (starts + nfft <= readable)
     win = sync.windows_at(x, torch.where(ok, starts, 0),
                           torch.arange(nfft, device=dev))
-    data_bins = device_table(sync._bins, dev, nfft, cfg.num_data_bins)
-    rot = torch.exp((1j * 2.0 * np.pi / nfft) *
-                    (delays[..., None, None] + 1).to(torch.float32) *
-                    data_bins.to(torch.float32))
+    rot = sync.derotation(nfft, delays[..., None] + 1, device_table(
+        sync._bins, dev, nfft, cfg.num_data_bins))
     return win, rot, ok
 
 
 def track_phasors(cfg: OFDMConfig, x: torch.Tensor, ptrs_local, delays,
-                  det_valid, readable_local, chans: torch.Tensor,
-                  demod_path: str | None = None) -> torch.Tensor:
+                  det_valid, readable_local,
+                  chans: torch.Tensor) -> torch.Tensor:
     """Equalised data of a detection table (``track_frame`` :228-234):
     the power-normalised data-bin spectra times the coefficient row rot *
     conj(h) / (|h|^2 + 1/snr) of each detection, then each symbol scaled to
-    unit mean power and masked by ``ok``.  ``demod_path`` as in
-    ``stream_rx.demod_rows`` ("kernel": K2, one launch over the table).
-    Returns [B, max_det, nd, num_data_bins]."""
+    unit mean power and masked by ``ok``; the spectra from K2, one launch
+    over the table (``stream_rx.demod_rows``).  Returns [B, max_det, nd,
+    num_data_bins]."""
     win, rot, ok = demod_track_table(cfg, x, ptrs_local, delays, det_valid,
                                      readable_local)
     data_bins = device_table(sync._bins, x.device, cfg.nfft,
                              cfg.num_data_bins)
     coeff = rot * sync.mmse_gain(chans[..., data_bins], cfg.snr_linear
                                  )[..., None, :]
-    eq = stream_rx.demod_rows(cfg, win, coeff, demod_path)
+    eq = stream_rx.demod_rows(cfg, win, coeff)
     p1 = (eq.abs() ** 2).mean(-1, keepdim=True)
     return eq / torch.sqrt(p1.clamp_min(1e-30)) * ok[..., None]
 
 
 def track_frame(cfg: OFDMConfig, x: torch.Tensor, total_loops: int,
-                max_det: int, scan: str | None = None,
-                demod_path: str | None = None) -> TrackResult:
+                max_det: int) -> TrackResult:
     """The tracker over whole buffers x [B, n] (or one buffer [n]): one
     ``track_scan`` of ``total_loops`` steps (it returns the channel table
     compacted), the accepted steps' pointers, delays and peaks compacted
     into a [max_det] table, then the data demod and the QPSK hard bits per
-    buffer (``tracker.py:track_frame``, vmapped).  ``scan`` None runs
-    ``kernels/tracker.py:track_scan`` (the kernel on a CUDA tensor), "plain"
-    its plain twin; ``demod_path`` as in :func:`track_phasors`."""
-    if scan not in (None, "plain"):
-        raise ValueError(f"unknown tracker scan {scan!r}")
+    buffer (``tracker.py:track_frame``, vmapped).  The scan is
+    ``kernels/tracker.py:track_scan``: the kernel on a CUDA tensor, its
+    plain twin on a CPU tensor."""
     one = x.ndim == 1
     xb = x[None] if one else x
     batch, n = xb.shape
-    run = (tracker_kernel.track_scan if scan is None
-           else tracker_kernel.track_scan_plain)
-    _, ys = run(cfg, xb, 0, n, tracker_init_carry(batch, xb.device),
-                total_loops, max_det)
-    out = track_result(cfg, xb, ys, demod_path)
+    _, ys = tracker_kernel.track_scan(
+        cfg, xb, 0, n, tracker_init_carry(batch, xb.device), total_loops,
+        max_det)
+    out = track_result(cfg, xb, ys)
     return TrackResult(*(f[0] for f in out)) if one else out
 
 
-def track_result(cfg: OFDMConfig, x: torch.Tensor, ys,
-                 demod_path: str | None = None) -> TrackResult:
+def track_result(cfg: OFDMConfig, x: torch.Tensor, ys) -> TrackResult:
     """:func:`track_frame` after its scan: the outputs ``ys`` of a
     ``track_scan`` over whole buffers x [B, n] (channel table [B, max_det,
     nfft]) -> the detection table, the demod and the QPSK hard bits."""
@@ -377,25 +370,22 @@ def track_result(cfg: OFDMConfig, x: torch.Tensor, ys,
         acc, (ptrs_all, dels_all, peaks_all), max_det)
     det_valid = torch.arange(max_det, device=x.device) < count[:, None]
     phasors = track_phasors(cfg, x, ptrs, delays, det_valid, x.shape[1],
-                            chan, demod_path).reshape(
+                            chan).reshape(
                                 batch, max_det * cfg.synch_dat[1], -1)
     hard, _, _ = modulation.qpsk_llr_frames(phasors)
     return TrackResult(ptrs, delays, peaks, count, chan, phasors, hard)
 
 
 def make_tracker(cfg: OFDMConfig, n_samples: int, max_det: int | None = None,
-                 device=None, scan: str | None = None,
-                 demod_path: str | None = None):
+                 device=None):
     """track_frame bound to a buffer length (``tracker.py:make_tracker``):
     ceil(n / stride) + 1 steps, ``max_det`` num_patterns unless given.  The
     returned function takes the samples ([n] or [B, n], a tensor or
-    anything numpy takes) to the CUDA device, or to ``device``; on a CUDA
-    device the demod defaults to K2."""
+    anything numpy takes) to the CUDA device, or to ``device``."""
     total_loops = int(np.ceil(n_samples / tracker_stride(cfg))) + 1
     if max_det is None:
         max_det = cfg.num_patterns
     device = resolve_device(device)
     fn = functools.partial(track_frame, cfg, total_loops=total_loops,
-                           max_det=max_det, scan=scan,
-                           demod_path=kernel_default(device, demod_path))
+                           max_det=max_det)
     return lambda x: fn(as_samples(x, device))

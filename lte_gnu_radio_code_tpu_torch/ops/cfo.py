@@ -110,8 +110,11 @@ def spectra_at_detections(cfg: OFDMConfig, x: torch.Tensor,
     """The power-normalised synch spectra at the detections only, each
     mixed with its winning CFO candidate (``cfo.py:spectra_at_detections``):
     x [..., n], ptrs and fo_sel [..., D] -> [..., D, m_synch*L]."""
-    return sync.sync_spectrum_at_ptr(cfg, x, ptrs,
-                                     mix=bank_select(bank, fo_sel))
+    win = sync.windows_at(x, ptrs, device_table(sync._synch_window_offsets,
+                                                x.device, cfg))
+    mixed = win * bank_select(bank, fo_sel)[..., None, :]
+    return _normalised_synch_bins(cfg,
+                                  torch.fft.fft(mixed, cfg.nfft, dim=-1))
 
 
 def sync_spectra_cfo(cfg: OFDMConfig, x: torch.Tensor, n_trials: int,

@@ -11,7 +11,8 @@ sums of |x|^2, x and (-1)^n x (valid when num_synch_bins == nfft - 2).
 over frames and trials: K_d is a circular shift by d of one length-N
 sequence, so a trial's row of delays is the forward FFT of each synch
 window, a multiply by conj(ZC) on the synch bins and one inverse FFT
-(``ops/sync.py``: ``sync_spectra`` + ``sync_correlate_ifft`` in one pass).
+(the JAX package's ``sync_spectra`` + ``sync_correlate_ifft`` in one
+pass).
 It is the plain version of K4's FFT route; nothing on the main path calls
 it.
 

@@ -1,10 +1,11 @@
-"""OFDM modulation ops in torch: resource-grid assembly, IFFT + cyclic
-prefix + the reference's two-stage per-symbol power normalisation.
+"""OFDM modulation ops in torch: resource-grid assembly and the symbol
+FFT.
 
 Port of ``lte_gnu_radio_code_tpu/ops/ofdm.py`` (``resource_grid`` in its
-concat form, with or without scattered pilots, ``cp_and_normalise``,
-``modulate``, ``idft_fourstep``, ``modulate_fourstep``, ``symbol_fft``).
-Every function takes leading batch dimensions.
+concat form, with or without scattered pilots, and ``symbol_fft``); the
+IDFT, cyclic prefix and normalisation are K1's
+(``kernels/ofdm_mod.py``).  Every function takes leading batch
+dimensions.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels import _cuda
 from ..utils.params import OFDMConfig, pilot_bin_plan, used_bins
 from ..utils.tables import device_table
 from .pilots import pilot_values
@@ -82,69 +82,6 @@ def resource_grid(cfg: OFDMConfig, data_symbols: torch.Tensor
     drows = _rows_from_vals(vals, cfg.nfft)
     order = device_table(_row_order, dev, cfg)
     return torch.cat([srows, drows], -2).index_select(-2, order)
-
-
-def cp_and_normalise(cfg: OFDMConfig, x: torch.Tensor) -> torch.Tensor:
-    """[..., S, nfft] time symbols -> [..., S*(nfft+cp)] frame: CP prepend,
-    scale each symbol to unit mean energy, then divide by sqrt of its
-    mean-subtracted complex variance (``ofdm.py:cp_and_normalise``)."""
-    t = torch.cat([x[..., -cfg.cp_len:], x], -1)
-    n = t.shape[-1]
-    energy = (t.abs() ** 2).sum(-1, keepdim=True)
-    t = t * torch.where(energy > 1e-30, torch.sqrt(n / energy), 1.0)
-    mean = t.mean(-1, keepdim=True)
-    p = ((t - mean).abs() ** 2).mean(-1, keepdim=True)
-    t = t / torch.sqrt(p)
-    return t.reshape(*t.shape[:-2], -1).to(torch.complex64)
-
-
-def modulate(cfg: OFDMConfig, grid: torch.Tensor) -> torch.Tensor:
-    """[..., S, nfft] grid -> [..., S*(nfft+cp)] frame via torch.fft
-    (``ofdm.py:modulate``)."""
-    return cp_and_normalise(cfg, torch.fft.ifft(grid, cfg.nfft, dim=-1))
-
-
-@functools.lru_cache(maxsize=16)
-def _fourstep_mats(nfft: int) -> tuple:
-    """Cooley-Tukey N = N1*N2 factor matrices of the IDFT as two matrix
-    products (``ofdm._fourstep_mats``).  With k = k1*N2 + k2 and
-    n = n1 + N1*n2:
-      x[n1 + N1 n2] = (1/N) sum_k2 W2[n2,k2] T[n1,k2] sum_k1 X[k1,k2] W1[n1,k1]
-    W1[n1,k1] = e^{+2 pi i n1 k1/N1}, W2[n2,k2] = e^{+2 pi i n2 k2/N2} and
-    the twiddles T[n1,k2] = e^{+2 pi i n1 k2/N} (here with the 1/N)."""
-    n1 = 1 << (int(np.log2(nfft)) + 1) // 2     # ~sqrt split, n1 >= n2
-    n2 = nfft // n1
-    w1 = np.exp(2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-    w2 = np.exp(2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
-    tw = np.exp(2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / nfft)
-    return (n1, n2, w1.astype(np.complex64), w2.astype(np.complex64),
-            (tw / nfft).astype(np.complex64))
-
-
-def _fourstep_table(nfft: int, k: int) -> np.ndarray:
-    return _fourstep_mats(nfft)[k]
-
-
-def idft_fourstep(nfft: int, grid: torch.Tensor) -> torch.Tensor:
-    """[..., nfft] IDFT as two matrix-product rounds and the twiddles
-    (``ofdm.idft_fourstep``); torch.fft.ifft to float32 rounding."""
-    n1, n2 = _fourstep_mats(nfft)[:2]
-    dev = grid.device
-    _cuda.require_fp32(dev)
-    w1, w2, tw = (device_table(_fourstep_table, dev, nfft, k)
-                  for k in (2, 3, 4))
-    lead = grid.shape[:-1]
-    xm = grid.to(torch.complex64).reshape(*lead, n1, n2)     # [., k1, k2]
-    a = torch.einsum("...kj,nk->...nj", xm, w1) * tw         # [., n1, k2]
-    b = torch.einsum("...nj,mj->...nm", a, w2)               # [., n1, n2]
-    # n = n1 + N1*n2: the output in [n2, n1] order
-    return b.transpose(-1, -2).reshape(*lead, nfft)
-
-
-def modulate_fourstep(cfg: OFDMConfig, grid: torch.Tensor) -> torch.Tensor:
-    """:func:`modulate` with the IDFT as :func:`idft_fourstep`
-    (``ofdm.modulate_fourstep``)."""
-    return cp_and_normalise(cfg, idft_fourstep(cfg.nfft, grid))
 
 
 def symbol_fft(cfg: OFDMConfig, windows: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from ..kernels import _cuda, equalize
 from ..utils.params import OFDMConfig, pilot_bin_plan, used_bins
 from ..utils.tables import device_table
 from .modulation import QPSK_POINTS
-from .sync import _bins_on, mmse_gain
+from .sync import mmse_gain
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,8 +133,7 @@ def _used_columns(cfg: OFDMConfig, pilots: bool) -> np.ndarray:
 
 def equalize_data_symbols_pilot(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
                                 delay_idx, num_patterns: int,
-                                return_chan: bool = False,
-                                eq: str | None = None):
+                                return_chan: bool = False):
     """Pilot-based stage B (``pilots.py:equalize_data_symbols_pilot``): the
     spectrum of every data window on the used bins, power-normalised and
     derotated by the lock's delay, split into pilot and data-only columns;
@@ -145,28 +144,17 @@ def equalize_data_symbols_pilot(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
     [..., num_data_only_bins] with ``return_chan``).
 
     The used bins are K2's bins, so the first step is K2 with the
-    coefficient set to the rotation alone.  ``eq`` None takes the spectra
-    from ``torch.fft.fft``, as the JAX function takes them from
-    ``jnp.fft.fft``; ``eq`` "kernel" is one call of
-    ``kernels.equalize.demod_windows`` over every window of every frame: on
-    a CUDA tensor one K2 launch, on a CPU tensor K2's plain version.  Which
-    runs is the caller's choice and the tensor's device, never a fallback.
-    K2 clamps a window's power at 1e-30 where the FFT form does not; they
-    differ only on an all-zero window."""
+    coefficient set to the rotation alone: one call of
+    ``kernels.equalize.demod_windows`` over every window of every frame,
+    on a CUDA tensor one K2 launch, on a CPU tensor its plain twin.  K2
+    clamps a window's power at 1e-30 where the JAX function's FFT does
+    not; they differ only on an all-zero window."""
     if len(pilot_bin_plan(cfg)[0]) < 2:
         raise ValueError("pilot equalisation needs at least 2 pilot bins")
     dev = x.device
     win = equalize.data_windows(cfg, x, lock_ptr, num_patterns)
     rot = equalize.derotation(cfg, delay_idx, dev)            # [..., B]
-    if eq == "kernel":
-        fu = equalize.demod_frames(cfg, win, rot)
-    elif eq is None:
-        fu = torch.fft.fft(win, cfg.nfft, dim=-1)[
-            ..., _bins_on(dev, cfg.nfft, cfg.num_data_bins)]
-        power = (fu.abs() ** 2).sum(-1, keepdim=True)
-        fu = fu * torch.sqrt(fu.shape[-1] / power) * rot[..., None, :]
-    else:
-        raise ValueError(f"unknown equaliser path {eq!r}")
+    fu = equalize.demod_frames(cfg, win, rot)
     fp = fu[..., device_table(_used_columns, dev, cfg, True)]
     fd = fu[..., device_table(_used_columns, dev, cfg, False)]
     h_d = estimate_channel_from_pilots(cfg, fp)

@@ -1,12 +1,11 @@
 """Synchronisation, channel estimation and MMSE equalisation in torch.
 
 Port of ``lte_gnu_radio_code_tpu/ops/sync.py``: ``n_trials_for``,
-``sync_spectra``, ``sync_spectrum_at``, ``sync_correlate``,
-``sync_correlate_ifft``, ``corr_abs_from_spectra``, ``first_lock`` (and
-``lock_from_peaks``, its part after the per-trial reduction),
-``estimate_channel``, ``mmse_gain``, ``demap_unbias_gain`` and
-``equalize_data_symbols`` (the plain twin of K2's caller), and the
-refractory (multi-detection) selection:
+``sync_spectrum_at`` (its "dft" form),
+``sync_correlate_ifft``, ``lock_from_peaks`` (``first_lock`` after its
+per-trial reduction, which K4's peaks form makes), ``estimate_channel``,
+``mmse_gain``, ``demap_unbias_gain``, the timing :func:`derotation`, and
+the refractory (multi-detection) selection:
 ``refractory_scan``, ``emit_slots``, ``refractory_select_idx``,
 ``refractory_table`` and ``refractory_detect``.  Functions that take a lock
 or a table of detections take leading frame dimensions: x [..., n] with
@@ -60,21 +59,6 @@ def windows_at(x: torch.Tensor, start, rel: torch.Tensor) -> torch.Tensor:
         *lead, *per, *rel.shape)
 
 
-def sync_spectra(cfg: OFDMConfig, x: torch.Tensor,
-                 n_trials: int) -> torch.Tensor:
-    """Power-normalised synch-bin spectra of every trial: x [..., n] ->
-    [..., n_trials, m_synch*num_synch_bins] (``sync.py:sync_spectra``)."""
-    starts = cfg.cp_len + cfg.stride * np.arange(n_trials)
-    offs = (np.arange(cfg.m_synch) * cfg.rx_b_len)[:, None] + \
-        np.arange(cfg.nfft)[None, :]
-    idx = torch.as_tensor(starts[:, None, None] + offs[None], device=x.device)
-    f = torch.fft.fft(x[..., idx], cfg.nfft, dim=-1)
-    s = f[..., _bins_on(x.device, cfg.nfft, cfg.num_synch_bins)].reshape(
-        *x.shape[:-1], n_trials, -1)
-    power = (s.abs() ** 2).sum(-1, keepdim=True)
-    return s * torch.sqrt(s.shape[-1] / power)
-
-
 @functools.lru_cache(maxsize=32)
 def _dft_synch_bins(nfft: int, num_bins: int) -> np.ndarray:
     """[nfft, L] DFT basis on the synch bins (``sync._dft_synch_bins``)."""
@@ -90,49 +74,30 @@ def _synch_window_offsets(cfg: OFDMConfig) -> np.ndarray:
             np.arange(cfg.nfft)[None, :])
 
 
-def sync_spectrum_at(cfg: OFDMConfig, x: torch.Tensor, trial,
-                     method: str | None = None) -> torch.Tensor:
+def sync_spectrum_at(cfg: OFDMConfig, x: torch.Tensor,
+                     trial) -> torch.Tensor:
     """Power-normalised synch-bin spectrum at one trial per frame: x
     [..., n], trial [...] -> [..., m_synch*num_synch_bins]
-    (``sync.py:sync_spectrum_at``; method "dft" is a matmul against the
-    synch-bin DFT basis, None a torch.fft)."""
+    (``sync.py:sync_spectrum_at`` with method "dft": a product with the
+    synch-bin DFT basis)."""
     return sync_spectrum_at_ptr(
         cfg, x, cfg.cp_len + cfg.stride *
-        torch.as_tensor(trial, device=x.device), method)
+        torch.as_tensor(trial, device=x.device))
 
 
-def sync_spectrum_at_ptr(cfg: OFDMConfig, x: torch.Tensor, ptr,
-                         method: str | None = None,
-                         mix: torch.Tensor | None = None) -> torch.Tensor:
+def sync_spectrum_at_ptr(cfg: OFDMConfig, x: torch.Tensor,
+                         ptr) -> torch.Tensor:
     """:func:`sync_spectrum_at` at sample pointers instead of trial
     indices: ptr [...] (one per frame) or [..., D] (a detection table per
-    frame) -> [..., m_synch*num_synch_bins] or [..., D, that].  ``mix``
-    (ptr's shape + [nfft]) multiplies every synch window of a pointer
-    before the transform: the CFO receivers' mixer."""
+    frame) -> [..., m_synch*num_synch_bins] or [..., D, that]."""
+    _cuda.require_fp32(x.device)
     win = windows_at(x, ptr,
                      device_table(_synch_window_offsets, x.device, cfg))
-    if mix is not None:
-        win = win * mix[..., None, :]
-    if method == "dft":
-        _cuda.require_fp32(x.device)
-        basis = device_table(_dft_synch_bins, x.device, cfg.nfft,
-                             cfg.num_synch_bins)
-        s = win @ basis
-    else:
-        s = torch.fft.fft(win, cfg.nfft, dim=-1)[
-            ..., _bins_on(x.device, cfg.nfft, cfg.num_synch_bins)]
+    s = win @ device_table(_dft_synch_bins, x.device, cfg.nfft,
+                           cfg.num_synch_bins)
     s = s.reshape(*s.shape[:-2], -1)
     power = (s.abs() ** 2).sum(-1, keepdim=True)
     return s * torch.sqrt(s.shape[-1] / power.clamp_min(1e-30))
-
-
-def sync_correlate(cfg: OFDMConfig, spectra: torch.Tensor) -> torch.Tensor:
-    """corr[p, d] = sum_k e^{+j2pi d b_k/N} S[p,k] conj(ZC[k]) as one matmul
-    (``sync.py:sync_correlate``)."""
-    _cuda.require_fp32(spectra.device)
-    zc = device_table(zc_for_config, spectra.device, cfg)
-    dse = device_table(delay_search_matrix, spectra.device, cfg)
-    return (spectra * zc.conj()) @ dse.T
 
 
 def sync_correlate_ifft(cfg: OFDMConfig,
@@ -146,18 +111,6 @@ def sync_correlate_ifft(cfg: OFDMConfig,
     y = spectra.new_zeros(*lead, cfg.nfft)
     y[..., _bins_on(y.device, cfg.nfft, cfg.num_synch_bins)] = q
     return cfg.nfft * torch.fft.ifft(y, dim=-1)[..., : cfg.cp_len + 1]
-
-
-def corr_abs_from_spectra(cfg: OFDMConfig, spectra: torch.Tensor,
-                          method: str) -> torch.Tensor:
-    """|corr| [p, cp+1] from trial spectra: "ifft" or the dense "exact"
-    (``sync.py:corr_abs_from_spectra``)."""
-    if method == "ifft":
-        return sync_correlate_ifft(cfg, spectra).abs()
-    if method == "exact":
-        return sync_correlate(cfg, spectra).abs()
-    raise ValueError(f"corr_abs_from_spectra: unknown method {method!r}; "
-                     "expected 'ifft' or 'exact'")
 
 
 def gate_level(cfg: OFDMConfig) -> float:
@@ -181,13 +134,6 @@ def lock_from_peaks(cfg: OFDMConfig, peak: torch.Tensor,
     at = first[..., None]
     return (ptr, delay.gather(-1, at)[..., 0], peak.gather(-1, at)[..., 0],
             found, first)
-
-
-def first_lock(cfg: OFDMConfig, corr_abs: torch.Tensor):
-    """:func:`lock_from_peaks` of corr_abs [..., p, D]: one ``max(-1)``
-    gives each trial's peak and delay (``sync.py:first_lock``).  Ties go to
-    the first index, as jnp.argmax."""
-    return lock_from_peaks(cfg, *corr_abs.max(-1))
 
 
 def scalar_like(v, ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -364,6 +310,14 @@ def mmse_gain(chan: torch.Tensor, snr_lin: float) -> torch.Tensor:
     return chan.conj() / (1.0 / snr_lin + chan.abs() ** 2)
 
 
+def derotation(nfft: int, delay, bins: torch.Tensor) -> torch.Tensor:
+    """[..., K] timing derotation e^{+j 2 pi d b / N} of each delay d
+    [...] on the bins b [K] (a tensor on the device the result is on)."""
+    d = torch.as_tensor(delay, device=bins.device).to(torch.float32)
+    return torch.exp((1j * 2.0 * np.pi / nfft) * d[..., None] *
+                     bins.to(torch.float32))
+
+
 def demap_unbias_gain(chan: torch.Tensor, snr_lin: float) -> torch.Tensor:
     """Per-bin real gain (|H|^2 + 1/SNR) / |H|^2 that removes the MMSE
     equaliser's amplitude bias before a QAM demap
@@ -381,22 +335,3 @@ def data_window_offsets(cfg: OFDMConfig, num_patterns: int) -> np.ndarray:
     return (np.arange(num_patterns)[:, None, None] * block +
             (m0 + np.arange(nd))[None, :, None] * cfg.rx_b_len +
             np.arange(cfg.nfft)[None, None, :]).reshape(-1, cfg.nfft)
-
-
-def equalize_data_symbols(cfg: OFDMConfig, x: torch.Tensor, lock_ptr,
-                          delay_idx, chan_full: torch.Tensor,
-                          num_patterns: int) -> torch.Tensor:
-    """FFT + power norm + timing derotation + MMSE EQ of every data symbol
-    at each frame's lock: x [..., n] -> [..., num_patterns*nd,
-    num_data_bins] (``sync.py:equalize_data_symbols``)."""
-    data_bins = _bins_on(x.device, cfg.nfft, cfg.num_data_bins)
-    win = windows_at(x, lock_ptr, device_table(data_window_offsets, x.device,
-                                               cfg, num_patterns))
-    fd = torch.fft.fft(win, cfg.nfft, dim=-1)[..., data_bins]
-    power = (fd.abs() ** 2).sum(-1, keepdim=True)
-    fd = fd * torch.sqrt(fd.shape[-1] / power)
-    delay = torch.as_tensor(delay_idx, device=x.device).to(torch.float32)
-    rot = torch.exp((1j * 2.0 * np.pi / cfg.nfft) * delay[..., None] *
-                    data_bins.to(torch.float32))
-    eq = mmse_gain(chan_full[..., data_bins], cfg.snr_linear)
-    return fd * rot[..., None, :] * eq[..., None, :]

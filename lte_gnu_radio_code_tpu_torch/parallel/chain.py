@@ -65,8 +65,7 @@ def make_sharded_chain(cfg: OFDMConfig, mesh: pmesh.Mesh):
         if noise is not None:
             noise = torch.as_tensor(noise, device=mesh.device)[rows]
         rx = chain.transmit(cfg, h, bits, generator=generator, noise=noise)
-        r = sharded.sharded_rx_frame(cfg, rx, mesh, num_patterns=num_patterns,
-                                     fast="kernel", demod_path="kernel")
+        r = sharded.sharded_rx_frame(cfg, rx, mesh, num_patterns=num_patterns)
         return chain._ber(r.hard_bits, bits), r.found, r.lock_ptr
 
     return run

@@ -39,7 +39,7 @@ from ..models import stream_rx
 from ..models.rxofdm import RxResult, demap, plan_rx
 from ..kernels import equalize
 from ..ops import sync
-from ..utils.device import as_samples, kernel_default
+from ..utils.device import as_samples
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
 from . import mesh as pmesh
@@ -74,16 +74,15 @@ def check_shards(cfg: OFDMConfig, local: int) -> None:
 
 
 def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
-              num_patterns: int, fast: str | None = None,
-              demod_path: str | None = None,
+              num_patterns: int,
               mesh: pmesh.Mesh | None = None) -> RxResult:
     """The body over this process's shards at once: x_local [..., t,
     local] (the leading dims are frames; t the shards this process stacks
     on ``mesh``) -> RxResult of each frame, as the
     single-device ``rxofdm.rx_frame`` gives it without a pilot grid (as
     the JAX body, every data symbol takes the synch symbols' channel
-    estimate).  ``fast`` and ``demod_path`` select the search and the demod
-    as in ``models/stream_rx.py`` ("kernel": K4 and K2).  Where no trial
+    estimate).  The search is K4 and the demod K2, as in
+    ``models/stream_rx.py``.  Where no trial
     crosses the gate, the lock pointer is trial 0's, and the delay, peak,
     channel and phasors are zero."""
     n_shards, local = x_local.shape[-2:]
@@ -100,7 +99,7 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
 
     # -- 2. local sync search -------------------------------------------------
     t_per = local // stride                          # trials per shard
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per)
     p_global = i[:, None] * t_per + torch.arange(t_per, device=dev)
     crossing = (dmax_val > sync.gate_level(cfg)) & (
         p_global < sync.n_trials_for(cfg, n_global))
@@ -127,9 +126,8 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
     win_shard = is_winner.to(torch.int32).argmax(-1)[..., None]
     ext_w = ext.gather(-2, win_shard[..., None].expand(
         *ext.shape[:-2], 1, ext.shape[-1]))[..., 0, :]
-    spec = sync.sync_spectrum_at(
-        cfg, ext_w, first_j.gather(-1, win_shard)[..., 0],
-        method="dft" if fast == "kernel" else None)
+    spec = sync.sync_spectrum_at(cfg, ext_w,
+                                 first_j.gather(-1, win_shard)[..., 0])
     if mesh is not None and mesh.t_group is not None:
         # the winner's process alone holds its row: its spectrum crosses
         # (where none won, the estimate is zeroed below either way)
@@ -153,7 +151,7 @@ def _local_rx(cfg: OFDMConfig, x_local: torch.Tensor, *, n_global: int,
         sync.data_window_offsets, dev, cfg, 1))     # [..., t, slots, nd, nfft]
     coeff = equalize.combined_coeff(cfg, delay_idx, chan_full)
     rows = coeff[..., None, None, :] * own[..., None]       # [..., t, slots, B]
-    vals = stream_rx.demod_rows(cfg, win, rows[..., None, :], demod_path)
+    vals = stream_rx.demod_rows(cfg, win, rows[..., None, :])
 
     # scatter the owned rows into [num_patterns] (others into a spare row
     # that is cut off), then the sum over shards: one shard owns each block
@@ -182,25 +180,20 @@ def shard(cfg: OFDMConfig, x: torch.Tensor, n_shards: int,
 
 
 def sharded_rx_frame(cfg: OFDMConfig, x: torch.Tensor, mesh: pmesh.Mesh,
-                     axis: str = "t", num_patterns: int | None = None,
-                     fast: str | None = None,
-                     demod_path: str | None = None) -> RxResult:
+                     axis: str = "t",
+                     num_patterns: int | None = None) -> RxResult:
     """Demodulate a sample buffer x [n] (or one per frame, [..., n])
-    sharded over mesh axis ``axis`` (``sharded.sharded_rx_frame``).  On the
-    mesh's CUDA device ``fast`` and ``demod_path`` default to "kernel"."""
+    sharded over mesh axis ``axis`` (``sharded.sharded_rx_frame``)."""
     n = x.shape[-1]
     if num_patterns is None:
         _, num_patterns = plan_rx(cfg, n)
     x_local = shard(cfg, as_samples(x, mesh.device), mesh.shape[axis], mesh)
     return _local_rx(cfg, x_local, n_global=n, num_patterns=num_patterns,
-                     fast=kernel_default(mesh.device, fast),
-                     demod_path=kernel_default(mesh.device, demod_path),
                      mesh=mesh)
 
 
 def make_sharded_rx(cfg: OFDMConfig, n_samples: int, mesh: pmesh.Mesh,
-                    axis: str = "t", fast: str | None = None,
-                    demod_path: str | None = None):
+                    axis: str = "t"):
     """The sharded RX bound to a buffer length
     (``sharded.make_sharded_rx``): fn(x) takes the samples (a tensor or
     anything numpy takes) to the mesh's device.  Raises ``ValueError`` where
@@ -213,7 +206,6 @@ def make_sharded_rx(cfg: OFDMConfig, n_samples: int, mesh: pmesh.Mesh,
         if x.shape[-1] != n_samples:
             raise ValueError(f"buffer of {x.shape[-1]} samples, the RX was "
                              f"made for {n_samples}")
-        return sharded_rx_frame(cfg, x, mesh, axis, num_patterns, fast,
-                                demod_path)
+        return sharded_rx_frame(cfg, x, mesh, axis, num_patterns)
 
     return run

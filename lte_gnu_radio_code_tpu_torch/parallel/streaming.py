@@ -47,7 +47,6 @@ from ..runtime.stream import (EagerStreamingRx, LegacyChunkOut,
                               ReacqChunkOut, ReacqState, legacy_init,
                               legacy_lag, reacq_det_max, reacq_init,
                               reacq_lag)
-from ..utils.device import kernel_default
 from ..utils.params import OFDMConfig
 from . import mesh as pmesh
 
@@ -96,8 +95,7 @@ def _owned(cfg: OFDMConfig, g_det, valid, base, lag: int, t_loc: int, i,
 
 
 def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
-                n_real, *, mesh: pmesh.Mesh, n_shards: int, det_max: int,
-                fast, demod_path):
+                n_real, *, mesh: pmesh.Mesh, n_shards: int, det_max: int):
     lag = reacq_lag(cfg)
     l_loc = check_chunk(cfg, chunk.shape[-1], n_shards, lag)
     stride = max(1, cfg.stride)
@@ -108,7 +106,7 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
 
     # -- 2. local dense search ---------------------------------------------
     t_loc = l_loc // stride
-    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_loc, fast)
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_loc)
     local_ptrs = cfg.cp_len + stride * torch.arange(t_loc, device=dev)
 
     # -- 3. global trial-ordered refractory selection -----------------------
@@ -128,7 +126,7 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     real_end = state.real_end + n_real
     chans_i, ph_i, ok_i = stream_rx.demod_detections(
         cfg, ext, ptr_rel, delays.expand(ext.shape[0], -1), mine,
-        real_end - my_start, demod_path=demod_path)
+        real_end - my_start)
     phasors = pmesh.psum(ph_i, 0, mesh)
 
     new_state = ReacqState(hist=chunk[-lag:].clone(),
@@ -146,22 +144,18 @@ def _reacq_body(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
 
 def make_sharded_reacq_step(cfg: OFDMConfig, chunk_len: int,
                             mesh: pmesh.Mesh, axis: str = "t",
-                            det_max: int | None = None, fast=None,
-                            demod_path=None):
+                            det_max: int | None = None):
     """The sharded chunk step (``streaming.make_sharded_reacq_step``):
     (step, det_max) with step(state, chunk [chunk_len], n_real) -> (state,
-    ReacqChunkOut).  ``fast`` and ``demod_path`` as in
-    ``runtime.stream.reacq_step`` ("kernel" on the mesh's CUDA device
-    unless set).  Raises ``ValueError`` for a chunk that does not split
+    ReacqChunkOut).  Raises ``ValueError`` for a chunk that does not split
     (:func:`check_chunk`)."""
     n_shards = mesh.shape[axis]
     check_chunk(cfg, chunk_len, n_shards, reacq_lag(cfg))
     if det_max is None:
         det_max = reacq_det_max(cfg, chunk_len)
     return functools.partial(
-        _reacq_body, cfg, mesh=mesh, n_shards=n_shards, det_max=det_max,
-        fast=kernel_default(mesh.device, fast),
-        demod_path=kernel_default(mesh.device, demod_path)), det_max
+        _reacq_body, cfg, mesh=mesh, n_shards=n_shards,
+        det_max=det_max), det_max
 
 
 class ShardedReacqStreamingRx(EagerStreamingRx):
@@ -171,14 +165,14 @@ class ShardedReacqStreamingRx(EagerStreamingRx):
     (:class:`EagerStreamingRx`)."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, mesh: pmesh.Mesh,
-                 axis: str = "t", fast=None, demod_path=None):
+                 axis: str = "t"):
         self.cfg = cfg
         self.chunk_len = chunk_len
         self.mesh = mesh
         self.device = mesh.device
         self.lag = reacq_lag(cfg)
         self._step, self.det_max = make_sharded_reacq_step(
-            cfg, chunk_len, mesh, axis, fast=fast, demod_path=demod_path)
+            cfg, chunk_len, mesh, axis)
         self.state = reacq_init(cfg, self.device)
 
 
@@ -189,8 +183,7 @@ class ShardedReacqStreamingRx(EagerStreamingRx):
 
 def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
                  chunk: torch.Tensor, n_real, *, mesh: pmesh.Mesh,
-                 n_shards: int, det_max: int, bank: torch.Tensor, dsss: int,
-                 demod_path):
+                 n_shards: int, det_max: int, bank: torch.Tensor, dsss: int):
     lag = legacy_lag(cfg)
     l_loc = check_chunk(cfg, chunk.shape[-1], n_shards, lag)
     stride = max(1, cfg.stride)
@@ -230,7 +223,7 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
     ok_i = mine & (g_det + data_off + cfg.nfft <= real_end)
     ph_i = legacy_rx.demod_after_detections(
         cfg, ext, torch.where(ok_i, ptr_rel + data_off, 0), ok_i, delays_i,
-        fo_i, chans_i, bank, demod_path)
+        fo_i, chans_i, bank)
     phasors = pmesh.psum(ph_i, 0, mesh)
 
     new_state = LegacyStreamState(
@@ -248,19 +241,18 @@ def _legacy_body(cfg: OFDMConfig, state: LegacyStreamState,
 def make_sharded_legacy_step(cfg: OFDMConfig, chunk_len: int,
                              mesh: pmesh.Mesh, axis: str = "t",
                              det_max: int | None = None, fo_range=(0.0,),
-                             dsss: int = 1, demod_path=None):
+                             dsss: int = 1):
     """The sharded legacy chunk step (``streaming.make_sharded_legacy_step``):
     (step, det_max) with step(state, chunk [chunk_len], n_real) -> (state,
-    LegacyChunkOut); the demod is K2 on the mesh's CUDA device unless
-    ``demod_path`` says otherwise."""
+    LegacyChunkOut); the demod is K2."""
     n_shards = mesh.shape[axis]
     check_chunk(cfg, chunk_len, n_shards, legacy_lag(cfg))
     if det_max is None:
         det_max = reacq_det_max(cfg, chunk_len)
     return functools.partial(
         _legacy_body, cfg, mesh=mesh, n_shards=n_shards, det_max=det_max,
-        bank=cfo_ops.bank_on(cfg, fo_range, mesh.device), dsss=dsss,
-        demod_path=kernel_default(mesh.device, demod_path)), det_max
+        bank=cfo_ops.bank_on(cfg, fo_range, mesh.device),
+        dsss=dsss), det_max
 
 
 class ShardedLegacyStreamingRx(LegacyStreamingRx):
@@ -268,14 +260,12 @@ class ShardedLegacyStreamingRx(LegacyStreamingRx):
     over the mesh, on the mesh's device."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, mesh: pmesh.Mesh,
-                 axis: str = "t", fo_range=(0.0,), dsss: int = 1,
-                 demod_path=None):
+                 axis: str = "t", fo_range=(0.0,), dsss: int = 1):
         self.cfg = cfg
         self.chunk_len = chunk_len
         self.mesh = mesh
         self.device = mesh.device
         self.lag = legacy_lag(cfg)
         self._step, self.det_max = make_sharded_legacy_step(
-            cfg, chunk_len, mesh, axis, fo_range=fo_range, dsss=dsss,
-            demod_path=demod_path)
+            cfg, chunk_len, mesh, axis, fo_range=fo_range, dsss=dsss)
         self.state = legacy_init(cfg, self.device)

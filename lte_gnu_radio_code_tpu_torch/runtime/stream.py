@@ -33,9 +33,8 @@ step loop (``kernels/tracker.py``) and one of K2, however many streams
 there are.
 
 The receivers run on the CUDA device unless the caller passes a ``device``
-(``"cpu"`` runs the kernels' plain versions); where there is no CUDA device
-and none is passed they raise.  On a CUDA device ``fast`` and
-``demod_path`` default to ``"kernel"``.
+(``"cpu"`` runs the kernels' plain twins); where there is no CUDA device
+and none is passed they raise.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ from ..models import legacy_rx, stream_rx, tracker
 from ..ops import cfo as cfo_ops
 from ..ops import sync
 from ..utils import profiling
-from ..utils.device import as_samples, kernel_default, resolve_device
+from ..utils.device import as_samples, resolve_device
 from ..utils.params import OFDMConfig
 from ..utils.tables import device_table
 
@@ -110,16 +109,11 @@ def _stride_aligned(cfg: OFDMConfig, chunk_len: int) -> int:
 
 
 def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
-                num_patterns_total: int, fast: str | None = None,
-                demod_path: str | None = None
-                ) -> tuple[StreamState, ChunkOut]:
+                num_patterns_total: int) -> tuple[StreamState, ChunkOut]:
     """One chunk of the single-lock stream (``stream.py:stream_step``): the
     first un-refractory gate crossing locks, and every pattern block that
-    has become readable is demodulated with the lock's channel estimate.
-
-    ``fast`` None / "exact" (the JAX package's form: trial spectra and the
-    dense delay product), "ifft", "conv" or "kernel" (K4); ``demod_path``
-    None (torch.fft), "dft" or "kernel" (K2), as in ``models/stream_rx``."""
+    has become readable is demodulated with the lock's channel estimate:
+    the search is K4, the demod K2 (``models/stream_rx.py``)."""
     chunk_len = chunk.shape[0]
     stride = _stride_aligned(cfg, chunk_len)
     hist_len = hist_len_for(cfg)
@@ -129,16 +123,7 @@ def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
 
     # -- the trials that became fully readable with this chunk --------------
     t_per = chunk_len // stride
-    fast = fast or "exact"
-    if fast in ("ifft", "exact"):
-        spectra = sync.sync_spectra(cfg, ext, t_per)
-        dmax_val, dmax_ind = sync.corr_abs_from_spectra(cfg, spectra,
-                                                        fast).max(-1)
-    elif fast in ("conv", "kernel"):
-        spectra = None
-        dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
-    else:
-        raise ValueError(f"unknown sync path {fast!r}")
+    dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per)
     global_ptrs = ext_start + cfg.cp_len + cfg.stride * torch.arange(
         t_per, device=dev)
     # the batch RX evaluates no trial before cp: mask them, so that the
@@ -150,11 +135,7 @@ def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
     first_j = ok.to(torch.int32).argmax()[None]        # first True (0 if none)
     new_lock_ptr = global_ptrs.gather(0, first_j)[0]
     new_delay = dmax_ind.gather(0, first_j)[0]
-    if spectra is not None:
-        spec = spectra.index_select(0, first_j)[0]
-    else:
-        spec = sync.sync_spectrum_at(
-            cfg, ext, first_j[0], method="dft" if fast == "kernel" else None)
+    spec = sync.sync_spectrum_at(cfg, ext, first_j[0])
     _, new_chan, _ = sync.estimate_channel(cfg, spec, new_delay)
 
     locked = state.locked | any_new
@@ -177,8 +158,7 @@ def stream_step(cfg: OFDMConfig, state: StreamState, chunk: torch.Tensor,
     win = sync.windows_at(ext, rel, device_table(
         sync.data_window_offsets, dev, cfg, 1))             # [kmax, nd, nfft]
     coeff = equalize.combined_coeff(cfg, delay_idx, chan_full)
-    phasors = stream_rx.demod_rows(cfg, win, coeff,
-                                   demod_path) * valid[:, None, None]
+    phasors = stream_rx.demod_rows(cfg, win, coeff) * valid[:, None, None]
     next_k = torch.where(locked, k0 + valid.sum(), 0)
 
     i32 = torch.int32
@@ -260,9 +240,7 @@ def reacq_init(cfg: OFDMConfig, device=None,
 
 
 def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
-               n_real, det_max: int, fast: str | None = None,
-               demod_path: str | None = None
-               ) -> tuple[ReacqState, ReacqChunkOut]:
+               n_real, det_max: int) -> tuple[ReacqState, ReacqChunkOut]:
     """One chunk of the continuous multi-detection receiver
     (``stream.py:reacq_step``), of one stream (chunk [chunk_len]) or of
     many at once (chunk [B, chunk_len], every state field with a leading
@@ -280,15 +258,14 @@ def reacq_step(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     ``ofdm.decide``; counters ``ofdm.detections`` (the table's count) and
     ``ofdm.slots`` (streams x det_max)."""
     new_state, out, count = _reacq_stages(cfg, state, chunk, n_real,
-                                          det_max, fast, demod_path)
+                                          det_max)
     profiling.count("ofdm.detections", count)
     profiling.count("ofdm.slots", det_max * count.numel())
     return new_state, out
 
 
 def _reacq_stages(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
-                  n_real, det_max: int, fast: str | None = None,
-                  demod_path: str | None = None
+                  n_real, det_max: int
                   ) -> tuple[ReacqState, ReacqChunkOut, torch.Tensor]:
     """:func:`reacq_step` without its counters: (new state, outputs, the
     table's count [...]), the work a receiver captures in a CUDA graph."""
@@ -301,7 +278,7 @@ def _reacq_stages(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
         ext_start = state.base - lag   # global coordinate of ext[..., 0]
 
         t_per = chunk_len // stride
-        dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per, fast)
+        dmax_val, dmax_ind = stream_rx.detect_trials(cfg, ext, t_per)
         local_ptrs = cfg.cp_len + stride * torch.arange(t_per, device=dev)
         global_ptrs = ext_start[..., None] + local_ptrs
         # trials before the stream's head (chunk 0's warm-up region) do not
@@ -319,8 +296,7 @@ def _reacq_stages(cfg: OFDMConfig, state: ReacqState, chunk: torch.Tensor,
     with profiling.span("ofdm.demod"):
         real_end = state.real_end + n_real
         chans, phasors, demod_ok = stream_rx.demod_detections(
-            cfg, ext, l_ptrs, delays, valid, real_end - ext_start,
-            demod_path=demod_path)
+            cfg, ext, l_ptrs, delays, valid, real_end - ext_start)
 
     with profiling.span("ofdm.decide"):
         new_state = ReacqState(hist=ext[..., -lag:].clone(),
@@ -474,8 +450,7 @@ class ReacqStreamingRx(EagerStreamingRx):
     on the CPU run the step eagerly on the same carry.  Counter
     ``ofdm.graph_steps``: 1 a replayed step, 0 an eager one."""
 
-    def __init__(self, cfg: OFDMConfig, chunk_len: int, fast=None,
-                 demod_path=None, device=None):
+    def __init__(self, cfg: OFDMConfig, chunk_len: int, device=None):
         _stride_aligned(cfg, chunk_len)
         self.cfg = cfg
         self.chunk_len = chunk_len
@@ -483,11 +458,10 @@ class ReacqStreamingRx(EagerStreamingRx):
         self.det_max = reacq_det_max(cfg, chunk_len)
         self.lag = reacq_lag(cfg)
         self._carry = reacq_init(cfg, self.device, self.batch)
-        paths = dict(det_max=self.det_max,
-                     fast=kernel_default(self.device, fast),
-                     demod_path=kernel_default(self.device, demod_path))
-        self._step = functools.partial(reacq_step, cfg, **paths)
-        self._stages = functools.partial(_reacq_stages, cfg, **paths)
+        self._step = functools.partial(reacq_step, cfg,
+                                       det_max=self.det_max)
+        self._stages = functools.partial(_reacq_stages, cfg,
+                                         det_max=self.det_max)
         self._graph = None
 
     @property
@@ -569,9 +543,9 @@ class BatchReacqStreamingRx(ReacqStreamingRx):
     and finish() pads every stream with the same zero chunks."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, batch: int,
-                 fast=None, demod_path=None, device=None):
+                 device=None):
         self.batch = batch
-        super().__init__(cfg, chunk_len, fast, demod_path, device)
+        super().__init__(cfg, chunk_len, device)
 
 
 class StreamingRx:
@@ -581,8 +555,7 @@ class StreamingRx:
     _COMPLEX = {"hist": "hist", "chan_full": "chan"}
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int,
-                 num_patterns_total: int | None = None, fast=None,
-                 demod_path=None, device=None):
+                 num_patterns_total: int | None = None, device=None):
         _stride_aligned(cfg, chunk_len)
         if num_patterns_total is None:
             num_patterns_total = cfg.num_patterns
@@ -592,9 +565,7 @@ class StreamingRx:
         self.device = resolve_device(device)
         self.state = init_state(cfg, chunk_len, self.device)
         self._step = functools.partial(
-            stream_step, cfg, num_patterns_total=num_patterns_total,
-            fast=kernel_default(self.device, fast),
-            demod_path=kernel_default(self.device, demod_path))
+            stream_step, cfg, num_patterns_total=num_patterns_total)
 
     def push(self, chunk) -> ChunkOut:
         chunk = as_samples(chunk, self.device)
@@ -675,16 +646,15 @@ def legacy_init(cfg: OFDMConfig, device=None) -> LegacyStreamState:
 
 def legacy_stream_step(cfg: OFDMConfig, state: LegacyStreamState,
                        chunk: torch.Tensor, n_real, det_max: int,
-                       bank: torch.Tensor, dsss: int = 1,
-                       demod_path: str | None = None
+                       bank: torch.Tensor, dsss: int = 1
                        ) -> tuple[LegacyStreamState, LegacyChunkOut]:
     """One chunk of the continuous CFO-search receiver
     (``stream.py:legacy_stream_step``).  The trial grid is ``reacq_step``'s
     (trials lag ``legacy_lag`` behind the input, so every trial's whole
     reach is readable in ext = [hist, chunk]); the search is the
     candidate-by-candidate scan of ``ops/cfo.py`` in plain torch, and the
-    per-detection demod one call over the detection table (K2 with
-    ``demod_path="kernel"``).  Static shapes, the carry on the device,
+    per-detection demod one K2 call over the detection table.  Static
+    shapes, the carry on the device,
     nothing waits for the host."""
     chunk_len = chunk.shape[-1]
     stride = _stride_aligned(cfg, chunk_len)
@@ -721,7 +691,7 @@ def legacy_stream_step(cfg: OFDMConfig, state: LegacyStreamState,
     demod_ok = valid & (g_ptrs + data_off + cfg.nfft <= real_end[..., None])
     phasors = legacy_rx.demod_after_detections(
         cfg, ext, torch.where(demod_ok, l_ptrs + data_off, 0), demod_ok,
-        delays, fo_sel, chans, bank, demod_path)
+        delays, fo_sel, chans, bank)
 
     new_state = LegacyStreamState(
         hist=ext[..., -lag:].clone(), base=state.base + chunk_len,
@@ -741,7 +711,7 @@ class LegacyStreamingRx(EagerStreamingRx):
     six keys) are :class:`EagerStreamingRx`'s."""
 
     def __init__(self, cfg: OFDMConfig, chunk_len: int, fo_range=(0.0,),
-                 dsss: int = 1, demod_path=None, device=None):
+                 dsss: int = 1, device=None):
         _stride_aligned(cfg, chunk_len)
         self.cfg = cfg
         self.chunk_len = chunk_len
@@ -751,8 +721,7 @@ class LegacyStreamingRx(EagerStreamingRx):
         self.state = legacy_init(cfg, self.device)
         self._step = functools.partial(
             legacy_stream_step, cfg, det_max=self.det_max,
-            bank=cfo_ops.bank_on(cfg, fo_range, self.device), dsss=dsss,
-            demod_path=kernel_default(self.device, demod_path))
+            bank=cfo_ops.bank_on(cfg, fo_range, self.device), dsss=dsss)
 
 
 # ---------------------------------------------------------------------------
@@ -807,8 +776,7 @@ def track_stream_init(cfg: OFDMConfig, batch: int = 1,
 
 
 def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
-                      chunk: torch.Tensor, n_real, slots: int, det_max: int,
-                      demod_path: str | None = None
+                      chunk: torch.Tensor, n_real, slots: int, det_max: int
                       ) -> tuple[TrackStreamState, TrackChunkOut]:
     """One chunk of B streaming trackers (``stream.py:track_stream_step``,
     with a stream axis): chunk [B, chunk_len], ``n_real`` the chunk's real
@@ -816,11 +784,10 @@ def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
     stream's ext = [hist, chunk] (one ``track_scan``: one kernel launch on
     the card, which also returns the channel tables compacted), the
     accepted ones compacted into a [B, det_max] table, each demodulated
-    (``models/tracker.py:track_phasors``: one K2 launch with
-    ``demod_path="kernel"``) and decided (``stream_rx.hard_decide``).  A
-    step fires only where its synch windows lie inside the real samples
-    and its pattern's data span inside ext, so a pointer that does not fit
-    yet is retried next chunk.  Static shapes, the carry on the device,
+    (``models/tracker.py:track_phasors``: one K2 launch) and decided
+    (``stream_rx.hard_decide``).  A step fires only where its synch windows
+    lie inside the real samples and its pattern's data span inside ext, so
+    a pointer that does not fit yet is retried next chunk.  Static shapes, the carry on the device,
     nothing waits for the host.
 
     Spans ``ofdm.track``, ``ofdm.select``, ``ofdm.demod``,
@@ -857,8 +824,7 @@ def track_stream_step(cfg: OFDMConfig, state: TrackStreamState,
     with profiling.span("ofdm.demod"):
         ptrs_local = torch.where(valid, g_ptrs - ext_start[:, None], 0)
         phasors = tracker.track_phasors(cfg, ext, ptrs_local, delays, valid,
-                                        real_end - ext_start, chans,
-                                        demod_path)
+                                        real_end - ext_start, chans)
 
     with profiling.span("ofdm.decide"):
         new_state = TrackStreamState(
@@ -895,8 +861,7 @@ class BatchTrackerStreamingRx:
         self.det_max = chunk_len // (2 * cfg.cp_len + cfg.nfft) + 2
         self.state = track_stream_init(cfg, batch, self.device)
         self._step = functools.partial(
-            track_stream_step, cfg, slots=self.slots, det_max=self.det_max,
-            demod_path=kernel_default(self.device, None))
+            track_stream_step, cfg, slots=self.slots, det_max=self.det_max)
 
     @property
     def chunk_shape(self) -> tuple:

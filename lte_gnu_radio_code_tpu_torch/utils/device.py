@@ -1,5 +1,7 @@
 """Where the port's entry points run: on the CUDA device unless the caller
-asks for the CPU."""
+asks for the CPU.  The device is the one thing that picks kernel or twin:
+each wrapper in ``kernels/`` launches its hand-written kernel on a CUDA
+tensor and runs its plain PyTorch twin on a CPU tensor."""
 
 from __future__ import annotations
 
@@ -24,9 +26,3 @@ def as_samples(x, device: torch.device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.asarray(x, np.complex64))
     return x.to(device=device, dtype=torch.complex64)
-
-
-def kernel_default(device: torch.device, path):
-    """A search or demod selector as the caller set it; where it was left
-    unset, "kernel" on a CUDA device."""
-    return path or ("kernel" if device.type == "cuda" else None)

@@ -1,9 +1,9 @@
 """Constant tables: from numpy to the port's device tensors.
 
 The system has no learned weights; what it carries are constant tables
-(DFT/IDFT bases, correlation kernels, the synch symbols' time rows, the
-channel impulse responses, the QAM constellations, the pilot values and
-interpolators, the CFO mixer bank and the DSSS code).  Each is built in
+(DFT/IDFT bases, correlation kernels, the channel impulse responses, the
+QAM constellations, the pilot values and interpolators, the CFO mixer bank
+and the DSSS code).  Each is built in
 numpy by the port module that uses it, beside the module that builds it in
 the JAX package.
 :func:`port_tables` names them all for one configuration,
@@ -53,7 +53,6 @@ def port_tables(cfg: OFDMConfig, fo_range=None,
     grid the pilot values and both interpolators, and for the legacy
     receivers (``fo_range`` given) the CFO mixer bank and the DSSS code."""
     from ..kernels import equalize, ofdm_mod
-    from ..models import txofdm
     from ..ops import cfo, channel, fast_sync, modulation, pilots, sync
 
     _, data_bins = used_bins(cfg.nfft, cfg.num_data_bins)
@@ -63,7 +62,6 @@ def port_tables(cfg: OFDMConfig, fo_range=None,
         "idft_data_bins": ofdm_mod._idft_bin_mats(cfg.nfft, data_bins),
         "dft_data_bins": equalize._dft_bins_mats(cfg.nfft, cfg.num_data_bins),
         "dft_synch_bins": sync._dft_synch_bins(cfg.nfft, cfg.num_synch_bins),
-        "synch_time_rows": txofdm._synch_time_rows(cfg),
     }
     for name in channel.CHANNELS_SISO:
         out[f"cir_{name}"] = channel.channel_taps(name)

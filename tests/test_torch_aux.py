@@ -1,10 +1,10 @@
 """The PyTorch port's trace helper, its numpy oracle and the BER
-sweep's ``--check-oracle``, and the four-step TX, on the CPU against the
-JAX package on numpy inputs made from a seed.
+sweep's ``--check-oracle``, and its TX against the JAX package's four-step
+one, on the CPU against the JAX package on numpy inputs made from a seed.
 
 Exact: the oracle's arrays (the port's copy against the JAX package's),
-and the oracle BER of the two CLIs.  Within 2e-5: the four-step IDFT and
-TX (float32 rounding of a different product order)."""
+and the oracle BER of the two CLIs.  Within 2e-5: K1's twin against the
+four-step IDFT and TX (float32 rounding of a different product order)."""
 
 import json
 
@@ -19,8 +19,8 @@ from lte_gnu_radio_code_tpu.ops import ofdm as jofdm
 from lte_gnu_radio_code_tpu.reference_cpu import golden as jgolden
 from lte_gnu_radio_code_tpu.utils import params as jparams
 from lte_gnu_radio_code_tpu_torch.cli import ber_sweep
+from lte_gnu_radio_code_tpu_torch.kernels import ofdm_mod
 from lte_gnu_radio_code_tpu_torch.models import txofdm
-from lte_gnu_radio_code_tpu_torch.ops import ofdm
 from lte_gnu_radio_code_tpu_torch.reference_cpu import golden
 from lte_gnu_radio_code_tpu_torch.utils import profiling
 from torch_parity import port_cfg, reduced
@@ -91,30 +91,40 @@ def test_ber_sweep_check_oracle_equals_jax_cli(capsys):
     assert "oracle_ber" not in qam[0]       # the oracle is BPSK / QPSK only
 
 
+FOURSTEP_CFGS = {
+    16: reduced(jparams.GOLDEN64, nfft=16, cp_len=4, num_synch_bins=14,
+                num_data_bins=12, num_ofdm_symb=8),
+    64: jparams.GOLDEN64, 1024: jparams.LTE1024, 2048: jparams.LTE2048}
+
+
 @pytest.mark.parametrize("nfft", [16, 64, 1024, 2048])
 def test_idft_fourstep_equals_jax_and_ifft(nfft):
+    """K1's twin (the port's modulator on the CPU) against the JAX
+    package's four-step IDFT, with its cyclic prefix and normalisation, and
+    against the FFT form."""
+    cfg = FOURSTEP_CFGS[nfft]
     rng = np.random.default_rng(nfft)
     grid = (rng.standard_normal((3, nfft)) +
             1j * rng.standard_normal((3, nfft))).astype(np.complex64)
-    got = ofdm.idft_fourstep(nfft, torch.from_numpy(grid))
-    np.testing.assert_allclose(got, np.asarray(jofdm.idft_fourstep(
-        nfft, jnp.asarray(grid))), atol=2e-5, rtol=0)
-    np.testing.assert_allclose(got, np.fft.ifft(grid), atol=2e-5, rtol=0)
+    got = ofdm_mod.modulate_rows(port_cfg(cfg),
+                                 torch.from_numpy(grid)).reshape(-1)
+    np.testing.assert_allclose(got, np.asarray(jofdm.cp_and_normalise(
+        cfg, jofdm.idft_fourstep(nfft, jnp.asarray(grid)))), atol=2e-5,
+        rtol=0)
+    np.testing.assert_allclose(got, np.asarray(jofdm.modulate(
+        cfg, jnp.asarray(grid))), atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("name", ["GOLDEN64", "LTE1024"])
 def test_tx_fourstep_equals_jax_and_the_default_path(name):
+    """The port's TX against the JAX package's four-step TX and its
+    default one."""
     cfg = reduced(getattr(jparams, name), num_ofdm_symb=8)
     pcfg = port_cfg(cfg)
     bits = np.random.default_rng(4).integers(0, 2, (2, cfg.num_bits))
-    four = txofdm.tx_frames(pcfg, torch.from_numpy(bits), path="fourstep")
-    default = txofdm.tx_frames(pcfg, torch.from_numpy(bits))
-    np.testing.assert_allclose(four, default, atol=2e-5, rtol=0)
-    one = txofdm.tx_frame(pcfg, torch.from_numpy(bits[0]), path="fourstep")
-    assert torch.equal(one, four[0])
-    want = jtx.tx_frame(cfg, jnp.asarray(bits[0], jnp.int32),
-                        path="fourstep")
-    np.testing.assert_allclose(one, np.asarray(want), atol=2e-5, rtol=0)
-    tx = ofdm.modulate_fourstep(pcfg, txofdm._grid(pcfg,
-                                                   torch.from_numpy(bits)))
-    assert torch.equal(tx, four)
+    ours = txofdm.tx_frames(pcfg, torch.from_numpy(bits))
+    one = txofdm.tx_frame(pcfg, torch.from_numpy(bits[0]))
+    assert torch.equal(one, ours[0])
+    for path in ("fourstep", None):
+        want = jtx.tx_frames(cfg, jnp.asarray(bits, jnp.int32), path=path)
+        np.testing.assert_allclose(ours, np.asarray(want), atol=2e-5, rtol=0)

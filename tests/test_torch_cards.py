@@ -139,7 +139,10 @@ def worker(pid, nproc, coord, out_dir, device, backend):
     out_dir = pathlib.Path(out_dir)
     jobs = torch.load(out_dir / "jobs.pt")
     if device == "cpu":
-        torch.set_num_threads(2)        # the processes share the host's cores
+        # one thread: the processes share the host's cores, and the CPU
+        # twins' products (K2's is a GEMM) round a row alike whatever the
+        # row count, as in the stacked run (:func:`_stacked`)
+        torch.set_num_threads(1)
     device = None if device == "card" else device
     assert multihost.init_distributed(coord, nproc, pid, backend=backend,
                                       device=device)
@@ -286,10 +289,17 @@ def two_procs(tmp_path_factory):
 
 
 def _stacked(job):
-    """The same job on a stacked mesh of the same shape in this process."""
+    """The same job on a stacked mesh of the same shape in this process,
+    on one thread, as each worker runs."""
     from lte_gnu_radio_code_tpu_torch.parallel import mesh as pmesh
 
-    return RUNNERS[job["kind"]](job, pmesh.time_mesh(job["t"], device="cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return RUNNERS[job["kind"]](job, pmesh.time_mesh(job["t"],
+                                                         device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_group_collectives_equal_the_stacked_ops(two_procs):

@@ -127,15 +127,30 @@ def test_chain_batch_matches_jax_lte1024(noise_db):
 
 
 def test_plain_chain_matches_kernel_chain():
+    """The port's chain (on the CPU the kernels' twins) against the JAX
+    package's plain chain on the same shared noise: its jnp.fft TX, its
+    shifted-add channel and rx_frame with its default search and FFT
+    equaliser, frame by frame."""
     cfg = dataclasses.replace(GOLDEN64, snr_db=5.0)
     bits, noise = _inputs(cfg, 2, seed=13)
     a = _port_chain(cfg, bits, noise)
-    b = _port_chain(cfg, bits, noise, plain=True)
-    for name, x, y in zip(a._fields, a, b):
-        if name == "phasors":       # K1's and K2's twins round differently
-            torch.testing.assert_close(x, y, atol=2e-4, rtol=0)
-        else:
-            assert torch.equal(x, y), name
+    n_trials, num_patterns = jrx.plan_rx(cfg, noise.shape[1])
+    for i in range(2):
+        tx = jtx.tx_frame(cfg, jnp.asarray(bits[i]))
+        clean = jchan.apply_channel(tx, jchan.channel_taps("Fading"),
+                                    max_impulse=cfg.nfft)
+        nv = jchan.noise_variance(cfg, jnp.mean(jnp.abs(tx - jnp.mean(tx))
+                                                ** 2))
+        ref = jrx.rx_frame(cfg, clean + jnp.sqrt(nv / 2.0).astype(
+            jnp.float32) * jnp.asarray(noise[i]), n_trials, num_patterns)
+        assert (bool(a.found[i]), int(a.lock_ptr[i]), int(a.delay_idx[i])) \
+            == (bool(ref.found), int(ref.lock_ptr), int(ref.delay_idx))
+        # K1's and K2's twins round otherwise than jnp.fft
+        np.testing.assert_allclose(a.phasors[i], np.asarray(ref.phasors),
+                                   atol=2e-4, rtol=0)
+        _check_bits(a.hard_bits[i:i + 1].numpy(),
+                    np.asarray(ref.hard_bits)[None],
+                    np.asarray(ref.phasors)[None])
 
 
 def test_make_chain_loopback_golden64():

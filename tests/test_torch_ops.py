@@ -15,7 +15,8 @@ from lte_gnu_radio_code_tpu.ops import modulation as jmodn
 from lte_gnu_radio_code_tpu.ops import ofdm as jofdm
 from lte_gnu_radio_code_tpu.ops import sync as jsync
 from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
-from lte_gnu_radio_code_tpu_torch.models import rxofdm, txofdm
+from lte_gnu_radio_code_tpu_torch.kernels import ofdm_mod
+from lte_gnu_radio_code_tpu_torch.models import rxofdm, stream_rx, txofdm
 from lte_gnu_radio_code_tpu_torch.ops import channel, modulation, ofdm, sync
 from torch_parity import port_cfg, reduced, rx_buffer
 
@@ -63,20 +64,24 @@ def test_resource_grid_and_modulate_match_jax():
     grid_ref = np.asarray(jofdm.resource_grid(cfg, pts))
     grid = ofdm.resource_grid(port_cfg(cfg), _t(pts))
     np.testing.assert_array_equal(grid.numpy(), grid_ref)
+    # K1's twin on the CPU: the modulator every port path takes
     np.testing.assert_allclose(
-        ofdm.modulate(port_cfg(cfg), grid).numpy(),
+        ofdm_mod.modulate_rows(port_cfg(cfg), grid).reshape(-1).numpy(),
         np.asarray(jofdm.modulate(cfg, jnp.asarray(grid_ref))), atol=2e-5)
 
 
-@pytest.mark.parametrize("path", [None, "kernel", "fused"])
+@pytest.mark.parametrize("path", [None, "pallas", "fused"])
 def test_tx_frames_paths_match_jax(path):
+    """The port's TX (K1's twin on the CPU) against each of the JAX
+    package's TX paths: torch.fft's counterpart, its K1 and its grid-free
+    fused form."""
     cfg = G24
     bits = np.random.default_rng(3).integers(0, 2, (2, cfg.num_bits),
                                              dtype=np.int32)
-    ref = np.asarray(jtx.tx_frames(cfg, jnp.asarray(bits), path=None))
-    out = txofdm.tx_frames(port_cfg(cfg), _t(bits), path=path)
+    ref = np.asarray(jtx.tx_frames(cfg, jnp.asarray(bits), path=path))
+    out = txofdm.tx_frames(port_cfg(cfg), _t(bits))
     np.testing.assert_allclose(out.numpy(), ref, atol=3e-5)
-    one = txofdm.tx_frame(port_cfg(cfg), _t(bits[0]), path=path)
+    one = txofdm.tx_frame(port_cfg(cfg), _t(bits[0]))
     np.testing.assert_array_equal(one.numpy(), out[0].numpy())
 
 
@@ -122,20 +127,19 @@ def test_sync_spectra_and_correlations_match_jax():
     n_trials, _ = jrx.plan_rx(cfg, len(x))
     pcfg, xt = port_cfg(cfg), _t(x)
     spec_ref = jsync.sync_spectra(cfg, jnp.asarray(x), n_trials)
-    spec = sync.sync_spectra(pcfg, xt, n_trials)
-    np.testing.assert_allclose(spec.numpy(), np.asarray(spec_ref),
-                               atol=2e-4)
-    for method in ("ifft", "exact"):
-        ref = np.asarray(jsync.corr_abs_from_spectra(
-            cfg, spec_ref, method if method == "ifft" else False))
-        out = sync.corr_abs_from_spectra(pcfg, _t(spec_ref), method)
-        np.testing.assert_allclose(out.numpy(), ref, atol=2e-3)
+    peak, delay = stream_rx.detect_trials(pcfg, xt, n_trials)
+    for method in ("ifft", False):
+        ref = np.asarray(jsync.corr_abs_from_spectra(cfg, spec_ref, method))
+        np.testing.assert_allclose(peak.numpy(), ref.max(-1), atol=2e-3)
+        np.testing.assert_array_equal(delay.numpy(), ref.argmax(-1))
     for method in (None, "dft"):
         for trial in (0, 7, n_trials - 1):
             ref = np.asarray(jsync.sync_spectrum_at(cfg, jnp.asarray(x),
                                                     trial, method=method))
-            out = sync.sync_spectrum_at(pcfg, xt, trial, method=method)
+            out = sync.sync_spectrum_at(pcfg, xt, trial)
             np.testing.assert_allclose(out.numpy(), ref, atol=2e-4)
+            np.testing.assert_allclose(out.numpy(), np.asarray(
+                spec_ref[trial]), atol=2e-4)
 
 
 def _lock_cases(cfg):
@@ -175,15 +179,20 @@ def _assert_lock_matches_jax(cfg, corr, out):
         np.testing.assert_array_equal(o.numpy(), r)
 
 
+def _lock(cfg, corr):
+    """The port's lock of a surface, as its receivers take it: each
+    trial's peak and delay (K4's peaks form), then lock_from_peaks."""
+    peak, delay = _t(corr).max(-1)
+    return sync.lock_from_peaks(port_cfg(cfg), peak, delay.to(torch.int32))
+
+
 def test_first_lock_matches_jax():
     cfg = G24
     cases = _lock_cases(cfg)
     for corr in cases:
-        _assert_lock_matches_jax(cfg, corr,
-                                 sync.first_lock(port_cfg(cfg), _t(corr)))
-    batched = sync.first_lock(port_cfg(cfg), _t(np.stack(cases)))
-    assert batched[0].tolist() == [sync.first_lock(port_cfg(cfg), _t(c))[0]
-                                   for c in cases]
+        _assert_lock_matches_jax(cfg, corr, _lock(cfg, corr))
+    batched = _lock(cfg, np.stack(cases))
+    assert batched[0].tolist() == [_lock(cfg, c)[0] for c in cases]
 
 
 @pytest.mark.parametrize("case", ["seeded", "zeros", "gate_tie", "delays",
@@ -195,12 +204,7 @@ def test_lock_from_peaks_matches_jax(case):
     cfg = G24
     cases = dict(zip(("seeded", "zeros", "gate_tie"), _lock_cases(cfg)),
                  **_planted_ties(cfg))
-    corr = cases[case]
-    peak, delay = _t(corr).max(-1)
-    _assert_lock_matches_jax(cfg, corr, sync.lock_from_peaks(
-        port_cfg(cfg), peak, delay.to(torch.int32)))
-    _assert_lock_matches_jax(cfg, corr,
-                             sync.first_lock(port_cfg(cfg), _t(corr)))
+    _assert_lock_matches_jax(cfg, cases[case], _lock(cfg, cases[case]))
 
 
 @pytest.mark.parametrize("batch", [None, 1, 3])
@@ -242,15 +246,15 @@ def test_estimate_channel_and_mmse_match_jax():
             atol=1e-5)
 
 
-@pytest.mark.parametrize("fast,jfast,eq", [
-    ("ifft", "ifft", None), ("exact", False, None), ("conv", True, None),
-    ("kernel", "pallas", "kernel")])
-def test_rx_frame_paths_match_jax(fast, jfast, eq):
+@pytest.mark.parametrize("jfast,jeq", [
+    ("ifft", None), (False, None), (True, None), ("pallas", "pallas")])
+def test_rx_frame_paths_match_jax(jfast, jeq):
+    """The port's RX (K4's and K2's twins on the CPU) against each of the
+    JAX package's search and equaliser forms."""
     cfg = G24
     x, bits = rx_buffer(cfg, seed=8, snr_db=8.0)
-    ref = jrx.make_rx(cfg, len(x), fast=jfast,
-                      eq="pallas" if eq else None)(jnp.asarray(x))
-    out = rxofdm.make_rx(port_cfg(cfg), len(x), fast=fast, eq=eq)(_t(x))
+    ref = jrx.make_rx(cfg, len(x), fast=jfast, eq=jeq)(jnp.asarray(x))
+    out = rxofdm.make_rx(port_cfg(cfg), len(x))(_t(x))
     assert bool(out.found) and bool(ref.found)
     assert int(out.lock_ptr) == int(ref.lock_ptr)
     assert int(out.delay_idx) == int(ref.delay_idx)

@@ -90,12 +90,6 @@ def test_sharded_rx_equals_jax_and_single_device(rx_buffer, n_shards):
     np.testing.assert_allclose(r.chan_est_time, np.asarray(j.chan_est_time),
                                atol=ATOL, rtol=0)
     assert abs(float(r.peak) - float(j.peak)) < PEAK_ATOL
-    # the kernel selectors take the kernels' plain twins on the CPU
-    k = sharded.make_sharded_rx(PCFG, len(rx), mesh, fast="kernel",
-                                demod_path="kernel")(torch.from_numpy(rx))
-    assert int(k.lock_ptr) == int(r.lock_ptr)
-    assert torch.equal(k.hard_bits, r.hard_bits)
-    np.testing.assert_allclose(k.phasors, r.phasors, atol=1e-5, rtol=0)
 
 
 def test_sharded_rx_frame_axis_and_no_false_lock():
@@ -378,8 +372,7 @@ def test_sharded_rx_hands_the_kernels_one_launch_each(monkeypatch,
     slots = local // (PCFG.pattern_len * PCFG.rx_b_len) + 2
     for frames in (1, 3):
         calls.clear()
-        sharded.make_sharded_rx(PCFG, len(rx), mesh, fast="kernel",
-                                demod_path="kernel")(
+        sharded.make_sharded_rx(PCFG, len(rx), mesh)(
             np.broadcast_to(rx, (frames, len(rx))).copy())
         assert [name for name, _ in calls] == ["sync_search_direct",
                                                "equalize_fft"]
@@ -403,17 +396,14 @@ def test_sharded_step_hands_the_kernels_one_launch_each(monkeypatch, kind):
     mesh = pmesh.time_mesh(n_shards, device=CPU)
     if kind == "reacq":
         cfg, chunk = PCFG, 1920
-        rx = streaming.ShardedReacqStreamingRx(cfg, chunk, mesh,
-                                               fast="kernel",
-                                               demod_path="kernel")
+        rx = streaming.ShardedReacqStreamingRx(cfg, chunk, mesh)
         lag, want = rt.reacq_lag(cfg), ["sync_search_direct", "equalize_fft"]
         rows = n_shards * rx.det_max * cfg.synch_dat[1]
     else:
         cfg = port_cfg(_case("CFO_CASES", 0))
         chunk = n_shards * cfg.stride * 24
         rx = streaming.ShardedLegacyStreamingRx(cfg, chunk, mesh,
-                                                fo_range=FO_RANGE,
-                                                demod_path="kernel")
+                                                fo_range=FO_RANGE)
         lag, want = rt.legacy_lag(cfg), ["equalize_fft"]
         rows = n_shards * rx.det_max
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(

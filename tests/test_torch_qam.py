@@ -113,19 +113,19 @@ def test_demap_unbias_gain_equals_jax():
         np.testing.assert_allclose(ours, ref, rtol=1e-5)
 
 
-@pytest.mark.parametrize("fast,eq", [(None, None), ("conv", None),
-                                     ("kernel", "kernel")])
+@pytest.mark.parametrize("jfast,jeq", [(None, None), (True, None),
+                                      ("pallas", "pallas")])
 @pytest.mark.parametrize("mod,snr_db", [("QAM16", 14.0), ("QAM64", 22.0)])
-def test_rx_frame_qam_equals_jax_on_a_noisy_buffer(mod, snr_db, fast, eq):
-    """One shared noisy Fading buffer through both packages' rx_frame: lock,
-    delay and found exact, hard bits exact (or on a boundary), phasors
-    within 2e-4, LLRs within 1e-4 of their scale plus what 2e-4 of phasor
-    moves them; the buffer carries bit errors, so the grid is exercised."""
+def test_rx_frame_qam_equals_jax_on_a_noisy_buffer(mod, snr_db, jfast, jeq):
+    """One shared noisy Fading buffer through both packages' rx_frame, the
+    JAX one in each of its search and equaliser forms: lock, delay and
+    found exact, hard bits exact (or on a boundary), phasors within 2e-4,
+    LLRs within 1e-4 of their scale plus what 2e-4 of phasor moves them;
+    the buffer carries bit errors, so the grid is exercised."""
     cfg = reduced(GOLDEN64, modulation=mod, snr_db=snr_db)
     rx, bits = jax_rx_buffer(cfg, 100, snr_db)
-    ref = jrx.make_rx(cfg, len(rx))(jnp.asarray(rx))
-    r = rxofdm.make_rx(port_cfg(cfg), len(rx), fast=fast, eq=eq)(
-        torch.from_numpy(rx))
+    ref = jrx.make_rx(cfg, len(rx), fast=jfast, eq=jeq)(jnp.asarray(rx))
+    r = rxofdm.make_rx(port_cfg(cfg), len(rx))(torch.from_numpy(rx))
     assert (bool(r.found), int(r.lock_ptr), int(r.delay_idx)) == (
         bool(ref.found), int(ref.lock_ptr), int(ref.delay_idx))
     assert r.hard_bits.shape == (cfg.num_bits,) and r.hard_bits.dtype == \
@@ -134,7 +134,8 @@ def test_rx_frame_qam_equals_jax_on_a_noisy_buffer(mod, snr_db, fast, eq):
                                atol=PHASOR_ATOL, rtol=0)
     n = assert_bits_equal_or_on_boundary(r.hard_bits, ref.hard_bits,
                                          ref.phasors, cfg, PHASOR_ATOL)
-    print(f"{mod} {fast}/{eq}: {n} symbols decided otherwise on a boundary")
+    print(f"{mod} {jfast}/{jeq}: {n} symbols decided otherwise on a "
+          "boundary")
     assert torch.equal(r.llr0, -r.llr1)
     errors = int((np.asarray(ref.hard_bits) != bits).sum())
     assert 0 < errors < 0.1 * cfg.num_bits
@@ -149,43 +150,45 @@ def test_rx_frame_with_a_frame_axis_equals_frame_by_frame(mod):
     bufs = np.stack([jax_rx_buffer(cfg, 40 + s, 15.0 - 3 * s)[0]
                      for s in range(4)])
     n_trials, num_patterns = rxofdm.plan_rx(pcfg, bufs.shape[1])
-    for fast, eq in ((None, None), ("kernel", "kernel")):
-        both = rxofdm.rx_frame(pcfg, torch.from_numpy(bufs.reshape(2, 2, -1)),
-                               n_trials, num_patterns, fast=fast, eq=eq)
-        assert both.hard_bits.shape == (2, 2, cfg.num_bits)
-        assert both.phasors.shape[:2] == both.lock_ptr.shape == (2, 2)
-        for i in range(4):
-            one = rxofdm.rx_frame(pcfg, torch.from_numpy(bufs[i]), n_trials,
-                                  num_patterns, fast=fast, eq=eq)
-            ref = jrx.rx_frame(cfg, jnp.asarray(bufs[i]), n_trials,
-                               num_patterns)
-            for f in one._fields:
-                x, y = getattr(one, f), getattr(both, f)[i // 2, i % 2]
-                if x.dtype.is_floating_point or x.dtype.is_complex:
-                    torch.testing.assert_close(x, y, atol=2e-5, rtol=1e-5)
-                else:
-                    assert torch.equal(x, y), (f, i)
-            assert int(one.lock_ptr) == int(ref.lock_ptr)
-            assert_bits_equal_or_on_boundary(one.hard_bits, ref.hard_bits,
-                                             ref.phasors, cfg, PHASOR_ATOL)
+    both = rxofdm.rx_frame(pcfg, torch.from_numpy(bufs.reshape(2, 2, -1)),
+                           n_trials, num_patterns)
+    assert both.hard_bits.shape == (2, 2, cfg.num_bits)
+    assert both.phasors.shape[:2] == both.lock_ptr.shape == (2, 2)
+    for i in range(4):
+        one = rxofdm.rx_frame(pcfg, torch.from_numpy(bufs[i]), n_trials,
+                              num_patterns)
+        ref = jrx.rx_frame(cfg, jnp.asarray(bufs[i]), n_trials, num_patterns)
+        for f in one._fields:
+            x, y = getattr(one, f), getattr(both, f)[i // 2, i % 2]
+            if x.dtype.is_floating_point or x.dtype.is_complex:
+                torch.testing.assert_close(x, y, atol=2e-5, rtol=1e-5)
+            else:
+                assert torch.equal(x, y), (f, i)
+        assert int(one.lock_ptr) == int(ref.lock_ptr)
+        assert_bits_equal_or_on_boundary(one.hard_bits, ref.hard_bits,
+                                         ref.phasors, cfg, PHASOR_ATOL)
 
 
 def test_rx_frames_batch_qam_kernel_path_equals_plain_and_rx_frame():
-    """The whole-batch RX for QAM64: the kernel path (on the CPU the plain
-    twins) == plain=True == rx_frame(fast="kernel", eq="kernel") per frame."""
+    """The whole-batch RX for QAM64 (on the CPU the plain twins) ==
+    rx_frame over the batch == rx_frame frame by frame, and locks every
+    frame where the JAX package's batch RX does."""
     cfg = reduced(GOLDEN64, modulation="QAM64", num_ofdm_symb=48)
     pcfg = port_cfg(cfg)
     xs = torch.from_numpy(np.stack([jax_rx_buffer(cfg, 60 + s, 24.0)[0]
                                     for s in range(3)]))
     n_trials, num_patterns = rxofdm.plan_rx(pcfg, xs.shape[1])
     a = rxofdm.rx_frames_batch(pcfg, xs, n_trials, num_patterns)
-    b = rxofdm.rx_frames_batch(pcfg, xs, n_trials, num_patterns, plain=True)
-    r = rxofdm.rx_frame(pcfg, xs, n_trials, num_patterns, fast="kernel",
-                        eq="kernel")
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
-    assert torch.equal(a.hard_bits, r.hard_bits)
-    assert torch.equal(a.lock_ptr, r.lock_ptr) and bool(a.found.all())
+    r = rxofdm.rx_frame(pcfg, xs, n_trials, num_patterns)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(r, f)), f
+    for i in range(3):
+        one = rxofdm.rx_frame(pcfg, xs[i], n_trials, num_patterns)
+        assert torch.equal(a.hard_bits[i], one.hard_bits)
+    _, jfound, jptr = jrx.rx_frames_batch(cfg, jnp.asarray(xs.numpy()),
+                                          n_trials, num_patterns)
+    assert a.lock_ptr.tolist() == np.asarray(jptr).tolist()
+    assert bool(a.found.all()) and bool(np.asarray(jfound).all())
 
 
 def test_ber_sweep_shape_and_monotone(monkeypatch):

@@ -21,15 +21,15 @@ S31 = reduced(GOLDEN64, nfft=128, cp_len=32, num_synch_bins=126,
               num_data_bins=120, num_ofdm_symb=24, stride=31)
 
 
-@pytest.mark.parametrize("fast,eq", [(None, None), ("conv", None),
-                                     ("kernel", "kernel")])
+@pytest.mark.parametrize("seed,snr_db", [(21, 25.0), (23, 15.0),
+                                         (24, 40.0)])
 @pytest.mark.parametrize("cfg", [GOLDEN64, S31], ids=["golden64", "stride31"])
-def test_split_stages_equal_jax_and_monolithic(cfg, fast, eq):
+def test_split_stages_equal_jax_and_monolithic(cfg, seed, snr_db):
+    """On the CPU (K4's and K2's twins) at three seeds and SNRs."""
     pcfg = port_cfg(cfg)
-    rx, bits = rx_buffer(cfg, 21, snr_db=25.0)
+    rx, bits = rx_buffer(cfg, seed, snr_db=snr_db)
     jf1, jf2 = jsplit.make_split_rx(cfg, len(rx))
-    f1, f2 = split.make_split_rx(pcfg, len(rx), device="cpu", fast=fast,
-                                 eq=eq)
+    f1, f2 = split.make_split_rx(pcfg, len(rx), device="cpu")
     a, ja = f1(rx), jf1(jnp.asarray(rx))
     n = int(ja.count)
     assert int(a.count) == n == cfg.num_patterns
@@ -49,8 +49,7 @@ def test_split_stages_equal_jax_and_monolithic(cfg, fast, eq):
                                atol=2e-4, rtol=0)
     np.testing.assert_array_equal(b.hard_bits, np.asarray(jb.hard_bits))
 
-    mono = rxofdm.make_rx(pcfg, len(rx), fast=fast, eq=eq)(
-        torch.from_numpy(rx))
+    mono = rxofdm.make_rx(pcfg, len(rx))(torch.from_numpy(rx))
     assert (int(a.ptrs[0]), int(a.delays[0])) == (int(mono.lock_ptr),
                                                   int(mono.delay_idx))
     assert torch.equal(b.hard_bits, mono.hard_bits)
@@ -64,18 +63,11 @@ def test_split_on_noise_finds_nothing():
     f1, _ = split.make_split_rx(port_cfg(GOLDEN64), 5000, device="cpu")
     a = f1(x)
     assert int(a.count) == 0 and not bool(a.ptrs.any())
-    with pytest.raises(ValueError, match="equaliser path"):
-        split.channel_estimate_demod(port_cfg(GOLDEN64), a.passthrough, 16,
-                                     1, 2, eq="fft")
 
 
 def test_split_runs_on_the_card_unless_asked(monkeypatch):
-    """Without a device the pair runs on the CUDA device, with K4 and K2 by
-    default there, and raises where there is none."""
-    from lte_gnu_radio_code_tpu_torch.utils.device import kernel_default
-    assert kernel_default(torch.device("cuda"), None) == "kernel"
-    assert kernel_default(torch.device("cuda"), "conv") == "conv"
-    assert kernel_default(torch.device("cpu"), None) is None
+    """Without a device the pair runs on the CUDA device, and raises where
+    there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for kw in ({}, {"device": "cuda"}):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -98,8 +90,7 @@ def test_split_kernel_path_launches_k4_then_k2(monkeypatch):
     monkeypatch.setattr(_cuda, "launch", recorded_launch(calls))
     cfg = GOLDEN64
     rx, _ = rx_buffer(cfg, 22)
-    f1, f2 = split.make_split_rx(port_cfg(cfg), len(rx), device="cpu",
-                                 fast="kernel", eq="kernel")
+    f1, f2 = split.make_split_rx(port_cfg(cfg), len(rx), device="cpu")
     kernels.reset_launch_counts()
     a = f1(rx)
     f2(a.passthrough, 16, 1)

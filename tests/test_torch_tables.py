@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from lte_gnu_radio_code_tpu.models import txofdm as jtx
 from lte_gnu_radio_code_tpu.ops import cfo as jcfo
 from lte_gnu_radio_code_tpu.ops import channel as jchan
 from lte_gnu_radio_code_tpu.ops import fast_sync as jfs
@@ -45,7 +44,6 @@ def jax_tables(cfg, fo_range=None, dsss=1):
         "dft_data_bins": jeq._dft_bins_mats(cfg.nfft, cfg.num_data_bins),
         "dft_synch_bins": jsync._dft_synch_bins(cfg.nfft,
                                                 cfg.num_synch_bins),
-        "synch_time_rows": jtx._synch_time_rows(cfg),
     }
     for name in jchan.CHANNELS_SISO:
         out[f"cir_{name}"] = jchan.channel_taps(name)
