@@ -81,7 +81,7 @@ recovered) and at 40 dB, both locks as expected in every exchange.
 oracles (``reference_cpu/``: NumPy loops that share only the configuration
 with the port's paths), on the same buffers made on the card and copied to
 the host: the first 8 frames of the GOLDEN64 b128 and LTE1024 b32 chains
-(``golden.py``) and of GOLDEN64 QAM64 b128 at its own 24 dB (``qam.py``),
+(``golden.py``; the RX outputs those of a replayed ``chain_batch`` step) and of GOLDEN64 QAM64 b128 at its own 24 dB (``qam.py``),
 64 pattern blocks of the CFO case 7 (+1500 Hz) and DSSS case 9 streams
 (``legacy.py``), 4 streams of each tracker cell (``tracker.py``) and 16 PLS
 exchanges (``pls.py``), each with the JAX package's test tolerances and its
@@ -131,6 +131,13 @@ reduced inside the kernel): equal to the same kernel's surface reduced by
 max(-1), values and delays bit for bit, on both routes; timed beside the
 surface form alone and with that reduction, against its bound.
 ``k4_link_run``: that check at GOLDEN64 b512, the g64-link cell's shape.
+``chain_graph_run``: at the link cells' shapes (GOLDEN64 b512, LTE2048
+b32), ``chain_batch`` given ``noise=`` (one replay of the CUDA graph
+captured at each configuration's first step) against its eager body on
+two SNR points by two input sets made on the card, stepped in turn: every
+output field equal bit for bit, the same launch counts, no host
+synchronisation in a replay; the ms a step and the host's ms to enqueue
+one of each.
 ``chain_run``, ``serving_run`` and ``mimo_run`` also gate every K4 launch
 of their main path to the peaks form.
 
@@ -146,6 +153,7 @@ repository.  The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -168,6 +176,8 @@ TIMING_REPS = 20
 CELLS = (("GOLDEN64", 128), ("LTE1024", 32), ("LTE2048", 32))
 # K4 alone at the g64-link cell's shape: config and frames
 K4_LINK = ("GOLDEN64", 512)
+LINK_CELLS = (("GOLDEN64", 512), ("LTE2048", 32))   # the link cells' shapes
+LINK_SNRS = (6.0, 24.0)       # two of the link cells' SNR points
 # serving shapes: config, streams, chunk length (256 strides at the LTE
 # sizes), chunks a push_many
 SERVING = (("LTE1024", 16, 65280, 16), ("GOLDEN64", 16, 65520, 4),
@@ -581,6 +591,107 @@ def k4_link_run(dev, gpu) -> list:
     c = sync_checks(cfg, batch, x, n_trials, f"{cell} on {gpu}")
     print_kernel_rows(cell, {"sync_search": c})
     return [kernel_entry("sync_search", cell, 1, c)]
+
+
+def bitwise(t):
+    """t with float32 and complex64 elements as int32 words, so that
+    torch.equal holds two tensors to the same bits."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def chain_graph_run(cfg_name, batch, dev, gpu) -> None:
+    """The chain step's graph path at a link cell's shape:
+    ``chain_batch`` given ``noise=`` (one replay of the CUDA graph captured
+    at the first step of its configuration) against its eager body
+    (``chain._chain_batch_eager``) on LINK_SNRS by two input sets of bits
+    and unit noise made on the card, stepped in turn as the link cells
+    step.  Gates: every output field equal bit for bit, the same launch
+    counts, the replays under sync debug mode "error".  Prints the ms a
+    step of each (the median of CHAIN_ROUNDS rounds of CHAIN_REPS steps
+    ending in a synchronize) and the host's ms to enqueue one step on an
+    idle card (the median of CHAIN_REPS)."""
+    from lte_gnu_radio_code_tpu_torch import kernels
+    from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm
+    from lte_gnu_radio_code_tpu_torch.utils import params
+
+    base = getattr(params, cfg_name)
+    n = base.frame_len + base.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(base, n)
+    h = chain.loopback_taps(base)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    sets = []
+    for _ in range(2):
+        bits = torch.randint(0, 2, (batch, base.num_bits), generator=g,
+                             device=dev, dtype=torch.int32)
+        ri = torch.randn((2, batch, n), generator=g, device=dev)
+        sets.append((bits, torch.complex(ri[0], ri[1])))
+    cfgs = [dataclasses.replace(base, snr_db=s).validate() for s in LINK_SNRS]
+    steps = [(c, b, z) for b, z in sets for c in cfgs]
+    cell = f"{cfg_name} b{batch} link"
+
+    def graph(i):
+        c, b, z = steps[i % len(steps)]
+        return chain.chain_batch(c, h, n_trials, num_patterns, b, noise=z)
+
+    def eager(i):
+        c, b, z = steps[i % len(steps)]
+        return chain._chain_batch_eager(c, h, n_trials, num_patterns, b,
+                                        noise=z)
+
+    t0 = time.perf_counter()
+    for i in range(len(cfgs)):                          # the captures
+        graph(i)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    outs, counts = {}, {}
+    for run in (eager, graph):
+        kernels.reset_launch_counts()
+        outs[run] = [run(i) for i in range(len(steps))]
+        counts[run] = kernels.launch_state()
+    if counts[graph] != counts[eager]:
+        raise AssertionError(f"{cell}: graph path launch counts "
+                             f"{counts[graph]} vs the eager body's "
+                             f"{counts[eager]}")
+    for i, (a, b) in enumerate(zip(outs[graph], outs[eager])):
+        for field in a._fields:
+            x, y = getattr(a, field), getattr(b, field)
+            if x.shape != y.shape or not torch.equal(bitwise(x), bitwise(y)):
+                raise AssertionError(f"{cell}: step {i}'s {field} differs "
+                                     "between the graph and the eager body")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(len(steps)):
+            graph(i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms, rounds, host = {}, {}, {}
+    for run in (eager, graph):
+        ms[run], rounds[run] = wall_ms(run)
+        queued = []
+        for i in range(CHAIN_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(i)
+            queued.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host[run] = sorted(queued)[len(queued) // 2]
+    msps = {run: batch * n / t / 1e3 for run, t in ms.items()}
+    print(f"{cell} on {gpu}: chain_batch's graph path == its eager body "
+          f"on {len(steps)} steps ({len(cfgs)} SNR points x 2 input sets): "
+          f"every field bit for bit, launch counts equal, no host sync in a "
+          f"replay; {len(cfgs)} captures in {capture_s:.3f} s; "
+          f"{ms[graph]:.3f} ms a step (rounds "
+          f"{', '.join(f'{t:.3f}' for t in rounds[graph])}), "
+          f"{msps[graph]:.3f} Msamples/s, host {host[graph]:.3f} ms to "
+          f"enqueue, against eager {ms[eager]:.3f} ms (rounds "
+          f"{', '.join(f'{t:.3f}' for t in rounds[eager])}), "
+          f"{msps[eager]:.3f} Msamples/s, host {host[eager]:.3f} ms: "
+          f"{ms[eager] / ms[graph]:.2f}x")
+    busy, launches = profile(graph, f"{cell} graph", top=0)
+    print(f"{cell}: graph path device busy {busy:.3f} of {ms[graph]:.3f} ms "
+          f"a step, {launches:.1f} device events a step")
 
 
 def kernel_checks(cfg, batch, dev, cell) -> dict:
@@ -2671,11 +2782,13 @@ def worst_excess(got, want, rtol=0.0) -> float:
 
 def oracle_chain(cfg, batch, frames, dev, cell) -> float:
     """One chain cell against the oracles (``reference_cpu/golden.py``,
-    ``qam.py`` for QAM) on the same buffers: ``chain_batch``'s two halves
-    on the device (``chain.transmit``: K1, K3 and AWGN at the config's own
-    SNR, as ``noisy_chain_check`` draws them; ``rx_frames_batch``: K4, K2)
-    over ``batch`` frames, K1 once more on the first ``frames`` frames'
-    bits, then the oracle RX on each of those frames' received samples.
+    ``qam.py`` for QAM) on the same buffers: ``chain.transmit`` on the
+    device (K1, K3 and AWGN at the config's own SNR, as
+    ``noisy_chain_check`` draws them) gives the received samples, and
+    ``chain_batch`` on the same bits and noise (on a CUDA device one
+    replay of its graph, which runs the same TX) the RX outputs, over
+    ``batch`` frames; K1 once more on the first ``frames`` frames' bits,
+    then the oracle RX on each of those frames' received samples.
     Gates: TX rows within K1's 2e-5; lock pointer, delay and found equal;
     QPSK hard bits equal but in a symbol whose oracle phasor lies within
     2e-4 (K2's tolerance) of a decision boundary
@@ -2699,15 +2812,16 @@ def oracle_chain(cfg, batch, frames, dev, cell) -> float:
         torch.randn(batch, n_samples, generator=gen, device=dev),
         torch.randn(batch, n_samples, generator=gen, device=dev))
     is_qam = cfg.modulation not in ("BPSK", "QPSK")
+    h = chain.loopback_taps(cfg)
     kernels.reset_launch_counts()
-    rxs = chain.transmit(cfg, chain.loopback_taps(cfg), bits, noise=noise)
-    r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
+    rxs = chain.transmit(cfg, h, bits, noise=noise)
+    r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
     tx = txofdm.tx_frames(cfg, bits[:frames])
     if is_qam:
         _, llr = modulation.maxlog_llr(r.phasors[:frames], cfg.modulation,
                                        1.0 / cfg.snr_linear)
         llr = llr.reshape(frames, -1).cpu().numpy()
-    oracle_launches(dev, cell, {"ofdm_mod": 2, "channel_conv": 1,
+    oracle_launches(dev, cell, {"ofdm_mod": 3, "channel_conv": 2,
                                 "sync_search": 1, "equalize": 1})
     x = rxs[:frames].cpu().numpy().astype(np.complex128)
     tx, b = tx.cpu().numpy(), bits[:frames].cpu().numpy()
@@ -4037,6 +4151,8 @@ def main() -> int:
         for name, c in checks.items():
             entries.append(kernel_entry(name, cell, run["launches"][name], c))
     entries += k4_link_run(dev, gpu)
+    for cfg_name, batch in LINK_CELLS:
+        chain_graph_run(cfg_name, batch, dev, gpu)
     for cfg_name, batch, chunk_len, k in SERVING:
         cfg = getattr(params, cfg_name)
         cell = f"{cfg_name} serving b{batch}"

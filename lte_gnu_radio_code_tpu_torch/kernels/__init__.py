@@ -12,10 +12,13 @@ them all and :func:`add_launches` raises them (a replayed CUDA graph adds
 the launches its capture made).
 """
 
+import functools
+
 KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
                   "tracker")
 
 
+@functools.cache
 def _modules():
     import importlib
     return {name: importlib.import_module(f"{__name__}.{name}")

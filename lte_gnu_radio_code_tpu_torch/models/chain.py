@@ -10,6 +10,7 @@ from an explicit ``torch.Generator`` or a given noise tensor.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import NamedTuple
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..kernels import channel_conv
 from ..ops import channel as chan_ops
 from ..utils import profiling
@@ -104,6 +106,109 @@ def transmit(cfg: OFDMConfig, h: np.ndarray, bits: torch.Tensor, *,
                              generator=generator, noise=noise)
 
 
+def _chain_batch_eager(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
+                       num_patterns: int, bits: torch.Tensor, *,
+                       generator: torch.Generator | None = None,
+                       noise: torch.Tensor | None = None) -> BatchChainResult:
+    """The body of one :func:`chain_batch` step, run op by op: what a
+    graph captures and what every step that does not replay one runs."""
+    rxs = transmit(cfg, h, bits, generator=generator, noise=noise)
+    r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
+    return BatchChainResult(_ber(r.hard_bits, bits), r.found, r.hard_bits,
+                            r.lock_ptr, r.delay_idx, r.phasors)
+
+
+class _Inputs(NamedTuple):
+    pool: tuple                 # the memory pool of this shape's graphs
+    bits: torch.Tensor          # the bits buffer they read
+    noise: torch.Tensor         # the noise buffer they read
+
+
+class _ChainGraph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: _Inputs
+    out: BatchChainResult       # the graph's outputs, rewritten each replay
+    launched: dict              # kernels.launch_state() keys: a replay's
+
+
+_GRAPHS_MAX = 16
+_graphs: collections.OrderedDict = collections.OrderedDict()  # LRU
+_inputs: dict = {}              # a key's last entry -> _Inputs
+
+
+def _graph_key(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
+               num_patterns: int, bits: torch.Tensor,
+               noise: torch.Tensor) -> tuple:
+    """Everything a captured step bakes in: the configuration (its
+    ``snr_db`` among the Python floats the step reads), the taps, the
+    plan, and the inputs' shapes, dtypes and device (the last entry)."""
+    h = np.asarray(h)
+    return (cfg, h.dtype.str, h.shape, h.tobytes(), n_trials, num_patterns,
+            (bits.shape, bits.dtype, noise.shape, noise.dtype, bits.device))
+
+
+def _capture(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
+             num_patterns: int, bits: torch.Tensor, noise: torch.Tensor,
+             key: tuple) -> _ChainGraph:
+    """The graph of one step on the input buffers of the key's shape (made
+    from bits and noise at that shape's first capture), in that shape's
+    memory pool.  Two warm-up steps on a side stream first make every
+    table, FFT plan and workspace the step uses.  The launch counters end
+    as they began; what the capture launched is what each replay adds."""
+    inputs = _inputs.get(key[-1])
+    if inputs is None:
+        inputs = _inputs[key[-1]] = _Inputs(
+            torch.cuda.graph_pool_handle(),
+            bits.clone(memory_format=torch.contiguous_format),
+            noise.clone(memory_format=torch.contiguous_format))
+    step = functools.partial(_chain_batch_eager, cfg, h, n_trials,
+                             num_patterns, inputs.bits, noise=inputs.noise)
+    before = kernels.launch_state()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    warm = kernels.launch_state()
+    with torch.cuda.graph(graph, pool=inputs.pool):
+        out = step()
+    after = kernels.launch_state()
+    kernels.add_launches({k: before[k] - n for k, n in after.items()})
+    return _ChainGraph(graph, inputs, out, {k: n - warm[k]
+                                            for k, n in after.items()
+                                            if n != warm[k]})
+
+
+def _replay(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
+            num_patterns: int, bits: torch.Tensor,
+            noise: torch.Tensor) -> BatchChainResult:
+    """One step as a replay of the key's graph (captured at its first
+    step; the least recently used of more than _GRAPHS_MAX graphs goes):
+    the inputs copied into its buffers, its outputs cloned, since the next
+    replay of any graph of the shape may rewrite them."""
+    key = _graph_key(cfg, h, n_trials, num_patterns, bits, noise)
+    g = _graphs.get(key)
+    if g is None:
+        with torch.cuda.device(bits.device):
+            g = _capture(cfg, h, n_trials, num_patterns, bits, noise, key)
+        _graphs[key] = g
+        while len(_graphs) > _GRAPHS_MAX:
+            old = _graphs.popitem(last=False)[0][-1]
+            if all(k[-1] != old for k in _graphs):
+                del _inputs[old]
+    _graphs.move_to_end(key)
+    g.inputs.bits.copy_(bits)
+    g.inputs.noise.copy_(noise)
+    g.graph.replay()            # on the current stream of the graph's device
+    kernels.add_launches(g.launched)
+    if profiling.recording():
+        profiling.count("ofdm.graph_steps", 1)
+    return BatchChainResult(*(f.clone() for f in g.out))
+
+
 def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
                 num_patterns: int, bits: torch.Tensor, *,
                 generator: torch.Generator | None = None,
@@ -113,15 +218,30 @@ def chain_batch(cfg: OFDMConfig, h: np.ndarray, n_trials: int,
 
     TX and channel through :func:`transmit` (K1 and K3), and RX through
     ``rxofdm.rx_frames_batch`` (K4 and K2), for any modulation and pilot
-    grid: the kernels on a CUDA device, their plain twins on the CPU.  Span
-    ``ofdm.chain_step``, the root of the stages; the BER is in its own
-    time."""
+    grid: the kernels on a CUDA device, their plain twins on the CPU.
+
+    A step on a CUDA device given ``noise=`` (and so a pure function of
+    bits and noise), outside another capture, with a CIR K3 takes, runs as
+    one replay of a CUDA graph of the step, captured at the first step of
+    its configuration, taps, plan and input shapes: a launch a step in
+    place of some 130, the same kernels at the same precision on the same
+    data, outputs cloned from the graph's, the kernels' launch counters
+    raised by what the capture launched.  The graphs of one input shape
+    share a memory pool and one bits and one noise buffer, so their steps
+    go on one stream, one after another.  Every other step (a
+    ``generator=``, the CPU) runs eagerly.  Span ``ofdm.chain_step``, the
+    root of the stages (a replayed step runs none of their Python); the
+    BER is in its own time.  Counter ``ofdm.graph_steps``: 1 a replayed
+    step, 0 an eager one."""
     with profiling.span("ofdm.chain_step"):
-        rxs = transmit(cfg, h, bits, generator=generator, noise=noise)
-        r = rxofdm.rx_frames_batch(cfg, rxs, n_trials, num_patterns)
-        return BatchChainResult(_ber(r.hard_bits, bits), r.found,
-                                r.hard_bits, r.lock_ptr, r.delay_idx,
-                                r.phasors)
+        if (bits.is_cuda and noise is not None and generator is None and
+                noise.device == bits.device and
+                len(h) <= channel_conv.MAX_TAPS and
+                not torch.cuda.is_current_stream_capturing()):
+            return _replay(cfg, h, n_trials, num_patterns, bits, noise)
+        profiling.count("ofdm.graph_steps", 0)
+        return _chain_batch_eager(cfg, h, n_trials, num_patterns, bits,
+                                  generator=generator, noise=noise)
 
 
 def ber_sweep(cfg: OFDMConfig, snr_dbs, seeds=range(4), device=None

@@ -10,9 +10,11 @@ which imports jax).  The serving path (``runtime/stream.py``) is held at a
 short stream: K4 and K2 at a chunk step's shapes, the receivers on the
 kernel path against the plain path, and their CUDA graph path (a full chunk
 replays the step captured at the first) against the eager ``reacq_step``
-chain, under sync debug mode "error" and the profiler.  "The plain path"
-is the same call on CPU copies of the inputs, where every wrapper runs
-its kernel's twin.  The other receiver generations are
+chain, under sync debug mode "error" and the profiler; so is the chain
+step's (``chain_batch`` given ``noise=`` replays a graph a configuration
+and input shape) against its eager body at the link cells' shapes.  "The
+plain path" is the same call on CPU copies of the inputs, where every
+wrapper runs its kernel's twin.  The other receiver generations are
 held the same way: K2 with the rotation alone against ``torch.fft`` at the
 pilot shapes, and the kernel path against the plain path for the QAM chain,
 the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
@@ -406,17 +408,17 @@ def test_k4_wrapper_follows_the_rule(dev):
 
 
 def test_chain_batch_searches_in_the_peaks_form(dev):
-    """One GOLDEN64 ``chain_batch`` step launches K4 once, on the direct
-    route, in the peaks form: the [B, trials, 17] surface is never
-    written."""
+    """One GOLDEN64 ``chain_batch`` step, its eager body (what a graph
+    captures), launches K4 once, on the direct route, in the peaks form:
+    the [B, trials, 17] surface is never written."""
     cfg = GOLDEN64
     n_samples = cfg.frame_len + cfg.nfft - 1
     n_trials, num_patterns = rxofdm.plan_rx(cfg, n_samples)
     bits, _ = _frames(cfg, dev, 4, seed=9)
     kernels.reset_launch_counts()
-    r = chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
-                          num_patterns, bits,
-                          noise=_cplx(dev, 10, 4, n_samples))
+    r = chain._chain_batch_eager(cfg, chain.loopback_taps(cfg), n_trials,
+                                 num_patterns, bits,
+                                 noise=_cplx(dev, 10, 4, n_samples))
     assert kernels.launch_counts()["sync_search"] == 1
     assert sync_search.route_launches == {"fft": 0, "direct": 1}
     assert sync_search.peak_launches == {"fft": 0, "direct": 1}
@@ -434,10 +436,12 @@ def _bitwise(t):
 @pytest.mark.parametrize("snr_db", [6.0, 24.0])
 def test_chain_batch_peaks_form_as_surface_lock(dev, monkeypatch, cfg, batch,
                                                 snr_db):
-    """``chain_batch`` on K4's peaks form == ``chain_batch`` with the search
+    """``chain_batch`` on K4's peaks form == its eager body with the search
     on the surface form reduced by ``max(-1)`` (the lock the path took
     before the peaks form), every output field bit for bit, at the link
-    cells' shapes: each decision of the peaks path is the surface's."""
+    cells' shapes: each decision of the peaks path is the surface's.  The
+    eager body runs the patched search on every call, where a cached
+    graph would replay the peaks form it captured."""
     cfg = dataclasses.replace(cfg, snr_db=snr_db).validate()
     n = cfg.frame_len + cfg.nfft - 1
     n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
@@ -447,9 +451,9 @@ def test_chain_batch_peaks_form_as_surface_lock(dev, monkeypatch, cfg, batch,
     ri = torch.randn((2, batch, n), generator=g, device=dev)
     noise = torch.complex(ri[0], ri[1])
 
-    def step():
-        return chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
-                                 num_patterns, bits, noise=noise)
+    def step(run=chain.chain_batch):
+        return run(cfg, chain.loopback_taps(cfg), n_trials, num_patterns,
+                   bits, noise=noise)
 
     def surface_peaks(cfg, x, n_trials, zc=None):
         peak, delay = sync_search.sync_corr_abs(cfg, x, n_trials, zc).max(-1)
@@ -461,7 +465,7 @@ def test_chain_batch_peaks_form_as_surface_lock(dev, monkeypatch, cfg, batch,
         cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch)] == 1
     monkeypatch.setattr(sync_search, "sync_peaks", surface_peaks)
     kernels.reset_launch_counts()
-    s = step()
+    s = step(chain._chain_batch_eager)
     assert sync_search.peak_launches == {"fft": 0, "direct": 0}
     for field in r._fields:
         a, b = getattr(r, field), getattr(s, field)
@@ -485,6 +489,109 @@ def test_chain_batch_through_kernels(dev):
     p = _moved(chain.chain_batch(cfg, h, n_trials, num_patterns, bits.cpu(),
                                  noise=noise.cpu()), dev)
     assert torch.equal(r.hard_bits, p.hard_bits)
+
+
+LINK = pytest.mark.parametrize("cfg,batch", [(GOLDEN64, 512),
+                                             (LTE2048, 32)],
+                               ids=["golden64-b512", "lte2048-b32"])
+
+
+def _link_steps(cfg, batch, dev):
+    """Two SNR points (6 and 24 dB) by two input sets of seeded bits and
+    unit noise made on the card, stepped in turn as the link cells step:
+    (h, n_trials, num_patterns, [(cfg, bits, noise)] x 4)."""
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
+    g = torch.Generator(device=dev).manual_seed(2101)
+    sets = []
+    for _ in range(2):
+        bits = torch.randint(0, 2, (batch, cfg.num_bits), generator=g,
+                             device=dev, dtype=torch.int32)
+        ri = torch.randn((2, batch, n), generator=g, device=dev)
+        sets.append((bits, torch.complex(ri[0], ri[1])))
+    cfgs = [dataclasses.replace(cfg, snr_db=s).validate() for s in (6., 24.)]
+    steps = [(c, b, z) for b, z in sets for c in cfgs]
+    return chain.loopback_taps(cfg), n_trials, num_patterns, steps
+
+
+def _grown(before):
+    return {k: n - before[k] for k, n in kernels.launch_state().items()}
+
+
+@LINK
+def test_chain_graph_replays_equal_the_eager_body(dev, cfg, batch):
+    """At the link cells' shapes, two SNR points by two input sets in turn
+    (a graph each SNR point): every output field of a replayed
+    ``chain_batch`` == the eager body's on the same inputs, bit for bit;
+    an earlier step's outputs unchanged after the later replays; each
+    replay raises ``launch_counts()``, ``route_launches`` and
+    ``peak_launches`` by one eager step's launches, one of each kernel."""
+    h, n_trials, num_patterns, steps = _link_steps(cfg, batch, dev)
+    for c, bits, noise in steps[:2]:                      # the captures
+        chain.chain_batch(c, h, n_trials, num_patterns, bits, noise=noise)
+    outs, kept, grown = [], [], []
+    for c, bits, noise in steps * 2:
+        before = kernels.launch_state()
+        outs.append(chain.chain_batch(c, h, n_trials, num_patterns, bits,
+                                      noise=noise))
+        grown.append(_grown(before))
+        kept.append(type(outs[-1])(*(f.clone() for f in outs[-1])))
+    route = sync_search.route(cfg.nfft, cfg.cp_len, cfg.stride, cfg.m_synch)
+    want = {**dict.fromkeys(kernels.launch_state(), 0),
+            **{(m, "launches", None): 1 for m in ("ofdm_mod", "channel_conv",
+                                                  "sync_search", "equalize")},
+            ("sync_search", "route_launches", route): 1,
+            ("sync_search", "peak_launches", route): 1}
+    for i, (c, bits, noise) in enumerate(steps * 2):
+        before = kernels.launch_state()
+        ref = chain._chain_batch_eager(c, h, n_trials, num_patterns, bits,
+                                       noise=noise)
+        assert grown[i] == _grown(before) == want, i
+        for field in ref._fields:
+            a, b = getattr(outs[i], field), getattr(ref, field)
+            assert a.shape == b.shape and torch.equal(
+                _bitwise(a), _bitwise(b)), (i, field)
+            assert torch.equal(_bitwise(a), _bitwise(getattr(kept[i],
+                                                              field)))
+    assert bool(outs[-1].found.all())
+
+
+@LINK
+def test_chain_graph_replay_waits_for_no_host(dev, cfg, batch):
+    """Replayed steps under sync debug mode "error" and torch.profiler:
+    nothing waits for the host, the trace holds K4 by name once a step,
+    and ``ofdm.graph_steps`` keeps 1 a replay and 0 a ``generator=``
+    step, which runs eagerly."""
+    from torch.profiler import ProfilerActivity, profile
+    h, n_trials, num_patterns, steps = _link_steps(cfg, batch, dev)
+    for c, bits, noise in steps[:2]:                      # the captures
+        chain.chain_batch(c, h, n_trials, num_patterns, bits, noise=noise)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for c, bits, noise in steps:
+                    chain.chain_batch(c, h, n_trials, num_patterns, bits,
+                                      noise=noise)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            c, bits, _ = steps[0]
+            chain.chain_batch(c, h, n_trials, num_patterns, bits,
+                              generator=gen)
+            torch.cuda.synchronize()
+        assert profiling.kept("ofdm.graph_steps") == [1, 1, 1, 1, 0]
+    finally:
+        profiling.reset_counters()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len([n for n in names if "sync_search_" in n]) == 5, names
+    assert sum(e.name == "ofdm.chain_step" and
+               e.device_type == torch.autograd.DeviceType.CPU
+               for e in prof.events()) == 5
 
 
 SERVING = pytest.mark.parametrize("cfg,chunk", [

@@ -42,17 +42,23 @@ def empty_counters():
     profiling.reset_counters()
 
 
-def _chain_steps():
-    """STEPS chain_batch steps of 2 frames at 20 dB on fixed noise."""
+def _chain_inputs():
+    """(h, n_trials, num_patterns, bits [STEPS, 2, num_bits], noise
+    [STEPS, 2, n]): STEPS steps of 2 frames of fixed bits and noise."""
     n = CFG.frame_len + CFG.nfft - 1
     n_trials, num_patterns = rxofdm.plan_rx(CFG, n)
-    h = chain.loopback_taps(CFG)
     rng = np.random.default_rng(3)
     bits = torch.from_numpy(rng.integers(0, 2, (STEPS, 2, CFG.num_bits),
                                          dtype=np.int32))
     noise = torch.from_numpy((rng.standard_normal((STEPS, 2, n)) + 1j *
                               rng.standard_normal((STEPS, 2, n))
                               ).astype(np.complex64))
+    return chain.loopback_taps(CFG), n_trials, num_patterns, bits, noise
+
+
+def _chain_steps():
+    """STEPS chain_batch steps of 2 frames at 20 dB on fixed noise."""
+    h, n_trials, num_patterns, bits, noise = _chain_inputs()
     return [chain.chain_batch(CFG, h, n_trials, num_patterns, bits[i],
                               noise=noise[i]) for i in range(STEPS)]
 
@@ -242,3 +248,56 @@ def test_the_gate_is_torchs_profiler_flag():
         assert isinstance(profiling.span("ofdm.x"),
                           torch.profiler.record_function)
     assert autograd_profiler._is_profiler_enabled is False
+
+
+def test_chain_steps_on_the_cpu_run_the_eager_body():
+    """``chain_batch`` on CPU tensors given ``noise=`` replays no graph:
+    under the profiler ``ofdm.graph_steps`` keeps 0 a step, no graph is
+    cached, and each step's outputs are the eager body's bit for bit."""
+    graphs = len(chain._graphs)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = _chain_steps()
+    assert profiling.kept("ofdm.graph_steps") == [0] * STEPS
+    assert len(chain._graphs) == graphs
+    h, n_trials, num_patterns, bits, noise = _chain_inputs()
+    for i, out in enumerate(outs):
+        ref = chain._chain_batch_eager(CFG, h, n_trials, num_patterns,
+                                       bits[i], noise=noise[i])
+        for name in out._fields:
+            x, y = getattr(out, name), getattr(ref, name)
+            assert x.dtype == y.dtype and x.shape == y.shape, name
+            assert torch.equal(x.contiguous().view(torch.uint8),
+                               y.contiguous().view(torch.uint8)), name
+
+
+KEY_CHANGES = {
+    "snr_db": lambda a: dict(a, cfg=dataclasses.replace(
+        CFG, snr_db=CFG.snr_db + 1.0)),
+    "taps": lambda a: dict(a, h=a["h"] * np.complex64(1j)),
+    "tap_count": lambda a: dict(a, h=np.concatenate(
+        [a["h"], np.zeros(1, a["h"].dtype)])),
+    "tap_dtype": lambda a: dict(a, h=a["h"].astype(np.complex128)),
+    "plan": lambda a: dict(a, num_patterns=a["num_patterns"] - 1),
+    "batch": lambda a: dict(a, bits=a["bits"][:1], noise=a["noise"][:1]),
+    "noise_dtype": lambda a: dict(
+        a, noise=a["noise"].to(torch.complex128)),
+}
+
+
+@pytest.mark.parametrize("change", sorted(KEY_CHANGES))
+def test_the_chain_graph_key_tells_steps_apart(change):
+    """Two steps whose graphs would differ have different keys: two
+    configurations that differ only in ``snr_db`` (which AWGN and the
+    channel estimate read as Python floats), two taps arrays (values,
+    length or dtype), plans, batches or noise dtypes; equal arguments
+    (the taps a copy) give one key.  Only a new input shape or dtype
+    changes the key's last entry, which names the shared buffers."""
+    h, n_trials, num_patterns, bits, noise = _chain_inputs()
+    args = dict(cfg=CFG, h=h, n_trials=n_trials, num_patterns=num_patterns,
+                bits=bits[0], noise=noise[0])
+    key = chain._graph_key(**args)
+    assert chain._graph_key(**dict(args, h=h.copy())) == key
+    other = chain._graph_key(**KEY_CHANGES[change](args))
+    assert other != key
+    assert (other[-1] != key[-1]) == (change in ("batch", "noise_dtype"))
