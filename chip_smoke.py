@@ -68,13 +68,14 @@ chunk step == the plain twin, timed from a cold and a warm L2.
 
 Then the 2x2 paths.  ``mimo_run``: ``make_mimo_chain`` (SpMult) and
 ``make_stcode_chain`` (Alamouti) at tests/test_mimo.py's configuration,
-128 frames a step, and at the reference's 2x2 profile WIFIMIMOSM-A with
-synch_dat (2, 2), 1024 frames, over the 2x2 Fading channel at 100 dB: every
-frame locked with BER 0, one K4 launch a step (the direct route, ZC slice
-0) and no other kernel, kernel path == plain path, no host synchronisation
-in a step; WIFIMIMOSM-A also at its own 50 dB, kernel and plain paths
-within 1e-4 of the bits; K4 against its plain versions at the step's
-search shape.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
+128 frames a step, at the reference's 2x2 profile WIFIMIMOSM-A with
+synch_dat (2, 2), 1024 frames, and at the benchmark's lte2048_2x2 (20 MHz
+LTE, synch_dat (2, 6)), 8 frames, over the 2x2 Fading channel at 100 dB:
+every frame locked with BER 0, one K4 launch a step (ZC slice 0; the direct
+route at nfft 64, the FFT route at 2048) and no other kernel, kernel path
+== plain path, no host synchronisation in a step; WIFIMIMOSM-A also at its
+own 50 dB and lte2048_2x2 at 12 dB, kernel and plain paths within 1e-4 of
+the bits; K4 against its plain versions at the step's search shape.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
 flat and a Fading 2x2 channel delayed by 40 samples, noise-free (every key
 recovered) and at 40 dB, both locks as expected in every exchange.
 ``oracle_run``: the card's full-width paths against the port's numpy
@@ -243,7 +244,10 @@ CHASE_STEPS = 1 << 14
 # tests/test_mimo.py:_cfg() (GOLDEN64's numerology, synch_dat (2, 2), 48
 # symbols); WIFIMIMOSM-A is the reference's 2x2 profile (SDRScript.py:28-41)
 # with synch_dat (2, 2), which the 2x2 pilots need; its own 50 dB runs too.
-MIMO_CELLS = (("MIMO test cfg", None, 128), ("WIFIMIMOSM-A", 1, 1024))
+# lte2048_2x2 is the benchmark's 20 MHz LTE 2x2 configuration (synch_dat
+# (2, 6), 64 symbols; K4's FFT route), also at 12 dB.
+MIMO_CELLS = (("MIMO test cfg", None, 128), ("WIFIMIMOSM-A", 1, 1024),
+              ("LTE-20 2x2", "lte2048_2x2", 8))
 # PLS: exchanges a batch (bench_generations.py:67), the delay past the cp
 # and the search's span (tests/test_pls.py), the AWGN of that test
 PLS_BATCH = 256
@@ -2539,12 +2543,16 @@ def cli_check(dev) -> None:
 
 def mimo_config(sdr_profile):
     """A MIMO cell's configuration at 100 dB and its own SNR: the test
-    configuration (None) or an SDR profile's, by its index."""
+    configuration (None), the benchmark's "lte2048_2x2" at 12 dB, or an SDR
+    profile's, by its index."""
     import dataclasses
     from lte_gnu_radio_code_tpu_torch.utils import params
     if sdr_profile is None:
         own = params.OFDMConfig(synch_dat=(2, 2), num_ofdm_symb=48,
                                 num_ant_txrx=2, snr_db=100.0).validate()
+    elif sdr_profile == "lte2048_2x2":
+        own = dataclasses.replace(params.LTE2048, synch_dat=(2, 6),
+                                  num_ant_txrx=2, snr_db=12.0).validate()
     else:
         own = dataclasses.replace(params.config_from_profile(
             params.SDR_PROFILES[sdr_profile]), synch_dat=(2, 2)).validate()
@@ -2559,7 +2567,9 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
     kernel path == plain path (CPU copies) on one noise tensor, no host
     synchronisation in a step; at the configuration's own SNR kernel and
     plain paths within 1e-4 of the bits; K4 against its plain versions at
-    the step's search shape (ZC slice 0).  Returns the cells' entries of the kernels line."""
+    the step's search shape (ZC slice 0).  The K4 route is the rule's at
+    the search view's shape (direct at nfft 64, FFT at LTE widths).
+    Returns the cells' entries of the kernels line."""
     from lte_gnu_radio_code_tpu_torch import kernels
     from lte_gnu_radio_code_tpu_torch.kernels import sync_search
     from lte_gnu_radio_code_tpu_torch.models import mimo
@@ -2568,6 +2578,9 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
     cfg, own = mimo_config(sdr_profile)
     n = cfg.frame_len + cfg.nfft - 1
     n_trials, _ = mimo.plan(cfg, n)
+    view = mimo.search_config(cfg)
+    kind = sync_search.route(view.nfft, view.cp_len, view.stride,
+                             view.m_synch)
     h = torch.as_tensor(channel.mimo2_taps("Fading"), device=dev)
     entries = []
     for mode, make, tx in (("SpMult", mimo.make_mimo_chain,
@@ -2599,12 +2612,12 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
         locks = torch.stack([r.lock_ptr for r in results]).unique().tolist()
         if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
                        "sync_search": CHAIN_REPS} or
-                routes != {"fft": 0, "direct": CHAIN_REPS} or
+                routes != {r: CHAIN_REPS * (r == kind) for r in routes} or
                 sync_search.peak_launches != routes):
             raise AssertionError(f"{cell}: launches {counts}, sync_search by "
                                  f"route {routes}, in the peaks form "
                                  f"{sync_search.peak_launches} over "
-                                 f"{CHAIN_REPS} steps, expected one direct "
+                                 f"{CHAIN_REPS} steps, expected one {kind} "
                                  "K4 launch a step in the peaks form")
         if not bool(found.all()) or float(ber.max()) != 0.0:
             raise AssertionError(f"{cell}: {int((~found).sum())} frames "

@@ -21,6 +21,18 @@ power, which the receiver leaves to one scale per stream at the end, and
 the TX norms are not K1's.  The chains run on the CUDA device unless asked
 for the CPU, and draw their noise from a ``torch.Generator`` or take a
 noise tensor.
+
+Tracing (``utils/profiling.py``): a chain step is the root span
+``ofdm.chain_step``; inside it ``ofdm.tx`` (both antennas' TX, the 2x2
+channel, power, AWGN), ``ofdm.search`` (K4), ``ofdm.lock``
+(``lock_from_peaks``), ``ofdm.estimate`` (the pilot windows, their FFT,
+the 2x2 LS estimate and its common scale), ``ofdm.demod`` (the data
+windows, their FFT, the derotation), ``ofdm.detect`` (SpMult: W, its
+product with every data symbol, each stream's unit power; STCode: the
+Alamouti combining) and ``ofdm.demap`` (the hard decisions).  Counter
+``ofdm.detect_frames``: the frames whose SpMult LMMSE a step ran, kept
+while a profiler records.  ``reference_cpu/mimo.py`` is the SpMult link's
+plain float64 reference.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from ..kernels import sync_search
 from ..ops import channel as chan_ops
 from ..ops import modulation, sync
 from ..ops.zadoff_chu import zc_for_config
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.params import OFDMConfig, used_bins
 from ..utils.tables import device_table
@@ -66,6 +79,8 @@ class MimoChainResult(NamedTuple):
     lock_ptr: torch.Tensor
     delay_idx: torch.Tensor
     hard_bits: torch.Tensor    # as the receiver's result
+    phasors: torch.Tensor      # as the receiver's result
+    chan_freq: torch.Tensor    # [..., 2, 2, nfft], [rx, tx, bin]
 
 
 def _check(cfg: OFDMConfig) -> None:
@@ -83,9 +98,13 @@ def _check_stc(cfg: OFDMConfig) -> None:
 @functools.lru_cache(maxsize=16)
 def search_config(cfg: OFDMConfig) -> OFDMConfig:
     """The single-synch view the search runs with: synch_dat (1, nd), one
-    antenna.  Its own ZC sequence is another one (length num_synch_bins):
-    the search correlates with :func:`_search_zc` instead."""
-    return dataclasses.replace(cfg, synch_dat=(1, cfg.synch_dat[1]),
+    antenna, one pattern long.  The search reads no symbol count (only
+    m_synch, the widths, the stride, the synch bins and the gate), so a
+    2x2 frame of any whole number of its own (2, nd) patterns has a valid
+    view.  Its own ZC sequence is another one (length num_synch_bins): the
+    search correlates with :func:`_search_zc` instead."""
+    nd = cfg.synch_dat[1]
+    return dataclasses.replace(cfg, synch_dat=(1, nd), num_ofdm_symb=1 + nd,
                                num_ant_txrx=1).validate()
 
 
@@ -242,33 +261,39 @@ def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     a pilot is silent on the other antenna, so normalising its window would
     blow noise up), one common scale on it, and the derotated data bins of
     every data symbol on both RX antennas.  Returns (ptr, delay, found,
-    chan_freq [..., 2, 2, nfft], data [..., 2, num_patterns*nd, B])."""
+    chan_freq [..., 2, 2, nfft], data [..., 2, num_patterns*nd, B]).  Spans
+    ``ofdm.search``, ``ofdm.lock``, ``ofdm.estimate``, ``ofdm.demod``."""
     dev = y.device
     cfg1 = search_config(cfg)
-    peaks = sync_search.sync_peaks(cfg1, y[..., 0, :].contiguous(), n_trials,
-                                   zc=_search_zc(cfg))
-    ptr, delay, _, found, _ = sync.lock_from_peaks(cfg1, *peaks)
-
-    seg = cfg.num_synch_bins
-    synch_bins = sync._bins_on(dev, cfg.nfft, seg)
-    data_bins = sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
-    rot = sync.derotation(cfg.nfft, delay, synch_bins)
-    rot_d = sync.derotation(cfg.nfft, delay, data_bins)
+    with profiling.span("ofdm.search"):
+        peaks = sync_search.sync_peaks(cfg1, y[..., 0, :].contiguous(),
+                                       n_trials, zc=_search_zc(cfg))
+    with profiling.span("ofdm.lock"):
+        ptr, delay, _, found, _ = sync.lock_from_peaks(cfg1, *peaks)
     starts = ptr[..., None].expand(*y.shape[:-1])      # one per RX antenna
 
-    win = sync.windows_at(y, starts, device_table(_pilot_offsets, dev, cfg))
-    s = torch.fft.fft(win, cfg.nfft, dim=-1)[..., synch_bins]
-    h_bins = (s * rot[..., None, None, :]) * \
-        device_table(_zc_slices, dev, cfg).conj()      # [..., rx, tx, L]
-    power = (h_bins.abs() ** 2).sum((-3, -2, -1), keepdim=True)
-    h_bins = h_bins * torch.sqrt(4 * seg / power.clamp_min(1e-30))
-    chan = h_bins.new_zeros(*h_bins.shape[:-1], cfg.nfft)
-    chan[..., synch_bins] = h_bins
+    with profiling.span("ofdm.estimate"):
+        seg = cfg.num_synch_bins
+        synch_bins = sync._bins_on(dev, cfg.nfft, seg)
+        rot = sync.derotation(cfg.nfft, delay, synch_bins)
+        win = sync.windows_at(y, starts, device_table(_pilot_offsets, dev,
+                                                      cfg))
+        s = torch.fft.fft(win, cfg.nfft, dim=-1)[..., synch_bins]
+        h_bins = (s * rot[..., None, None, :]) * \
+            device_table(_zc_slices, dev, cfg).conj()  # [..., rx, tx, L]
+        power = (h_bins.abs() ** 2).sum((-3, -2, -1), keepdim=True)
+        h_bins = h_bins * torch.sqrt(4 * seg / power.clamp_min(1e-30))
+        chan = h_bins.new_zeros(*h_bins.shape[:-1], cfg.nfft)
+        chan[..., synch_bins] = h_bins
 
-    win = sync.windows_at(y, starts, device_table(
-        sync.data_window_offsets, dev, cfg, num_patterns))
-    fd = torch.fft.fft(win, cfg.nfft, dim=-1)[..., data_bins]
-    return ptr, delay, found, chan, fd * rot_d[..., None, None, :]
+    with profiling.span("ofdm.demod"):
+        data_bins = sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
+        rot_d = sync.derotation(cfg.nfft, delay, data_bins)
+        win = sync.windows_at(y, starts, device_table(
+            sync.data_window_offsets, dev, cfg, num_patterns))
+        fd = torch.fft.fft(win, cfg.nfft, dim=-1)[..., data_bins]
+        fd = fd * rot_d[..., None, None, :]
+    return ptr, delay, found, chan, fd
 
 
 def _unit_power(ph: torch.Tensor) -> torch.Tensor:
@@ -295,19 +320,25 @@ def rx_frame_mimo(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
                   num_patterns: int) -> MimoRxResult:
     """[..., 2, n] received -> two demodulated streams
     (``mimo.py:rx_frame_mimo``): per-bin 2x2 LMMSE W = (H^H H + I/snr)^-1
-    H^H, then each stream scaled to unit power."""
+    H^H, then each stream scaled to unit power.  Spans those of
+    :func:`_front`, ``ofdm.detect`` and ``ofdm.demap``; counter
+    ``ofdm.detect_frames``."""
     _check(cfg)
     ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns)
     dev = y.device
-    hd = chan[..., sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
-    hd = hd.movedim(-1, -3)                             # [..., B, rx, tx]
-    hh = hd.conj().transpose(-1, -2)
-    eye = torch.eye(2, dtype=hd.dtype, device=dev)
-    w = _inv2x2(hh @ hd + (1.0 / cfg.snr_linear) * eye) @ hh
-    yv = fd.movedim(-3, -1)[..., None]                  # [..., KN, B, 2, 1]
-    xhat = (w[..., None, :, :, :] @ yv)[..., 0]         # [..., KN, B, 2]
-    ph = _unit_power(xhat.movedim(-1, -3))              # [..., 2, KN, B]
-    return MimoRxResult(ph, _hard(cfg, ph), ptr, delay, found, chan)
+    with profiling.span("ofdm.detect"):
+        hd = chan[..., sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
+        hd = hd.movedim(-1, -3)                         # [..., B, rx, tx]
+        hh = hd.conj().transpose(-1, -2)
+        eye = torch.eye(2, dtype=hd.dtype, device=dev)
+        w = _inv2x2(hh @ hd + (1.0 / cfg.snr_linear) * eye) @ hh
+        yv = fd.movedim(-3, -1)[..., None]              # [..., KN, B, 2, 1]
+        xhat = (w[..., None, :, :, :] @ yv)[..., 0]     # [..., KN, B, 2]
+        ph = _unit_power(xhat.movedim(-1, -3))          # [..., 2, KN, B]
+    profiling.count("ofdm.detect_frames", found.numel())
+    with profiling.span("ofdm.demap"):
+        hard = _hard(cfg, ph)
+    return MimoRxResult(ph, hard, ptr, delay, found, chan)
 
 
 def rx_frame_stcode(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
@@ -315,22 +346,27 @@ def rx_frame_stcode(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     """[..., 2, n] received -> one Alamouti-combined stream
     (``mimo.py:rx_frame_stcode``): per bin and pair, over both RX antennas,
     s0 = sum conj(h_r0) y_r(t) + h_r1 conj(y_r(t+1)), s1 = sum conj(h_r1)
-    y_r(t) - h_r0 conj(y_r(t+1)), over sum |h|^2 + 2/snr."""
+    y_r(t) - h_r0 conj(y_r(t+1)), over sum |h|^2 + 2/snr.  Spans those of
+    :func:`_front`, ``ofdm.detect`` and ``ofdm.demap``."""
     _check_stc(cfg)
     ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns)
     nd, nb = cfg.synch_dat[1], cfg.num_data_bins
-    pairs = fd.reshape(*fd.shape[:-2], num_patterns, nd // 2, 2, nb)
-    y_t, y_t1 = pairs[..., 0, :], pairs[..., 1, :]      # [..., rx, K, P, B]
-    hd = chan[..., sync._bins_on(y.device, cfg.nfft, nb)]  # [..., rx, tx, B]
-    h0 = hd[..., 0, :][..., None, None, :]              # [..., rx, 1, 1, B]
-    h1 = hd[..., 1, :][..., None, None, :]
-    s0 = (h0.conj() * y_t + h1 * y_t1.conj()).sum(-4)
-    s1 = (h1.conj() * y_t - h0 * y_t1.conj()).sum(-4)
-    norm = (hd.abs() ** 2).sum((-3, -2))[..., None, None, :] + \
-        2.0 / cfg.snr_linear
-    shat = torch.stack([s0 / norm, s1 / norm], -2)      # [..., K, P, 2, B]
-    ph = _unit_power(shat.reshape(*shat.shape[:-4], num_patterns * nd, nb))
-    return StcRxResult(ph, _hard(cfg, ph), ptr, delay, found, chan)
+    with profiling.span("ofdm.detect"):
+        pairs = fd.reshape(*fd.shape[:-2], num_patterns, nd // 2, 2, nb)
+        y_t, y_t1 = pairs[..., 0, :], pairs[..., 1, :]  # [..., rx, K, P, B]
+        hd = chan[..., sync._bins_on(y.device, cfg.nfft, nb)]
+        h0 = hd[..., 0, :][..., None, None, :]          # [..., rx, 1, 1, B]
+        h1 = hd[..., 1, :][..., None, None, :]
+        s0 = (h0.conj() * y_t + h1 * y_t1.conj()).sum(-4)
+        s1 = (h1.conj() * y_t - h0 * y_t1.conj()).sum(-4)
+        norm = (hd.abs() ** 2).sum((-3, -2))[..., None, None, :] + \
+            2.0 / cfg.snr_linear
+        shat = torch.stack([s0 / norm, s1 / norm], -2)  # [..., K, P, 2, B]
+        ph = _unit_power(shat.reshape(*shat.shape[:-4], num_patterns * nd,
+                                      nb))
+    with profiling.span("ofdm.demap"):
+        hard = _hard(cfg, ph)
+    return StcRxResult(ph, hard, ptr, delay, found, chan)
 
 
 # -- loopback chains -----------------------------------------------------------
@@ -348,15 +384,19 @@ def _make_chain(cfg: OFDMConfig, channel: str, device, tx, rx):
 
     def step(bits, *, generator: torch.Generator | None = None,
              noise: torch.Tensor | None = None) -> MimoChainResult:
-        bits = torch.as_tensor(bits, device=dev)
-        sig = tx(cfg, bits)                             # [..., 2, T]
-        clean = chan_ops.apply_channel_mimo(sig, h, max_impulse=cfg.nfft)
-        sig_pow = (sig.abs() ** 2).mean((-2, -1))
-        y = chan_ops.awgn(cfg, clean, sig_pow[..., None, None],
-                          generator=generator, noise=noise)
-        r = rx(cfg, y, n_trials, num_patterns)
-        return MimoChainResult(_ber(r.hard_bits, bits), r.found, r.lock_ptr,
-                               r.delay_idx, r.hard_bits)
+        with profiling.span("ofdm.chain_step"):
+            bits = torch.as_tensor(bits, device=dev)
+            with profiling.span("ofdm.tx"):
+                sig = tx(cfg, bits)                     # [..., 2, T]
+                clean = chan_ops.apply_channel_mimo(sig, h,
+                                                    max_impulse=cfg.nfft)
+                sig_pow = (sig.abs() ** 2).mean((-2, -1))
+                y = chan_ops.awgn(cfg, clean, sig_pow[..., None, None],
+                                  generator=generator, noise=noise)
+            r = rx(cfg, y, n_trials, num_patterns)
+            return MimoChainResult(_ber(r.hard_bits, bits), r.found,
+                                   r.lock_ptr, r.delay_idx, r.hard_bits,
+                                   r.phasors, r.chan_freq)
 
     return step
 
@@ -364,13 +404,14 @@ def _make_chain(cfg: OFDMConfig, channel: str, device, tx, rx):
 def make_mimo_chain(cfg: OFDMConfig, channel: str = "Fading", device=None):
     """The 2x2 SpMult loopback (``mimo.py:make_mimo_chain``): step(bits
     [..., 2, num_bits], generator= or noise= [..., 2, frame_len + nfft -
-    1]) -> MimoChainResult with the BER of each stream.  TX, the 2x2
-    channel ``mimo2_taps(channel)`` with its output zero-padded to
-    frame_len + nfft - 1 samples (the SISO chain's ``max_impulse = nfft``;
-    the JAX chain cuts it at frame_len + taps - 1 and searches as many
-    trials, reading its last sample again past the end), AWGN at the
-    config's SNR over each frame's mean TX power, RX; on the CUDA device
-    unless ``device`` says otherwise."""
+    1]) -> MimoChainResult with the BER of each stream, the phasors and
+    the channel estimate.  TX, the 2x2 channel ``mimo2_taps(channel)``
+    with its output zero-padded to frame_len + nfft - 1 samples (the SISO
+    chain's ``max_impulse = nfft``; the JAX chain cuts it at frame_len +
+    taps - 1 and searches as many trials, reading its last sample again
+    past the end), AWGN at the config's SNR over each frame's mean TX
+    power, RX; on the CUDA device unless ``device`` says otherwise.  The
+    step runs eagerly, its stages in spans (module docstring)."""
     _check(cfg)
     return _make_chain(cfg, channel, device, tx_frame_mimo,
                        rx_frame_mimo)

@@ -19,7 +19,8 @@ held the same way: K2 with the rotation alone against ``torch.fft`` at the
 pilot shapes, and the kernel path against the plain path for the QAM chain,
 the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
 MIMO chains: K4 at ZC slice 0 on both routes, the kernel path against the
-plain path, one K4 launch a step, no host synchronisation; a batch of PLS
+plain path, one K4 launch a step, no host synchronisation, at nfft 64 and
+at 20 MHz LTE widths (SpMult, the FFT route); a batch of PLS
 key exchanges on the card; the native ring's chunks into a receiver on
 the card.  The sharded runtime (``parallel/``): the sharded RX, the dp x t
 chain and the sharded reacq and legacy chunk steps on the kernels against
@@ -57,6 +58,7 @@ from lte_gnu_radio_code_tpu_torch.utils.params import (CFO_CASES, DSSS_CASES,
                                                        config_from_case,
                                                        config_from_profile,
                                                        used_bins)
+from ofdm_bench.judge import rail_margin
 
 pytestmark = pytest.mark.cuda
 
@@ -1480,6 +1482,56 @@ def test_mimo_kernel_path_equals_plain_path(dev, cfg, mode):
     torch.cuda.set_sync_debug_mode("error")
     try:
         step(bits, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+L2K_2X2 = dataclasses.replace(LTE2048, synch_dat=(2, 6), num_ant_txrx=2)
+
+
+def test_mimo_lte20_step_kernel_path_equals_plain_path(dev):
+    """The 2x2 SpMult step at 20 MHz LTE widths (``l2k-2x2-link``'s
+    configuration: nfft 2048, synch_dat (2, 6), 64 symbols), 4 frames at
+    100, 24 and 6 dB on one noise tensor against the plain path: found, lock
+    and delay equal, hard bits equal where the plain path's rail lies
+    farther than 1e-4 from a boundary, phasors within 1e-4 and the channel
+    estimate within 4e-5 (the cell's limits against float64; the two
+    paths' float32 FFTs differ by less); one K4 launch a step, on the FFT
+    route in the peaks form; at 100 dB every frame locked at the first
+    trial with BER 0; a step under torch's sync debug mode "error"."""
+    n = L2K_2X2.frame_len + L2K_2X2.nfft - 1
+    bits = torch.from_numpy(np.random.default_rng(56).integers(
+        0, 2, (4, 2, L2K_2X2.num_bits), dtype=np.int32)).to(dev)
+    noise = _cplx(dev, 57, 4, 2, n)
+    for snr in (100.0, 24.0, 6.0):
+        cfg = dataclasses.replace(L2K_2X2, snr_db=snr)
+        kernels.reset_launch_counts()
+        before = (dict(sync_search.route_launches),
+                  dict(sync_search.peak_launches))
+        rk = mimo.make_mimo_chain(cfg)(bits, noise=noise)
+        assert kernels.launch_counts()["sync_search"] == 1
+        assert sync_search.route_launches == {
+            **before[0], "fft": before[0]["fft"] + 1}
+        assert sync_search.peak_launches == {
+            **before[1], "fft": before[1]["fft"] + 1}
+        rp = _moved(mimo.make_mimo_chain(cfg, device="cpu")(
+            bits.cpu(), noise=noise.cpu()), dev)
+        for f in ("found", "lock_ptr", "delay_idx"):
+            assert torch.equal(getattr(rk, f), getattr(rp, f)), (snr, f)
+        assert float((rk.phasors - rp.phasors).abs().max()) <= 1e-4
+        assert float((rk.chan_freq - rp.chan_freq).abs().max()) <= 4e-5
+        differ = (rk.hard_bits != rp.hard_bits).cpu().numpy()
+        margin = rail_margin(rp.phasors.cpu().numpy()).reshape(differ.shape)
+        assert not (differ & (margin > 1e-4)).any()
+        if snr == 100.0:
+            assert bool(rk.found.all()) and float(rk.ber.max()) == 0.0
+            assert bool((rk.lock_ptr == L2K_2X2.cp_len).all())
+    step = mimo.make_mimo_chain(L2K_2X2)
+    step(bits, noise=noise)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(bits, noise=noise)
     finally:
         torch.cuda.set_sync_debug_mode("default")
 

@@ -130,7 +130,9 @@ def test_search_at_slice_zero_equals_jax_einsum():
     cfg = _cfg()
     cfg1 = _jcfg1(cfg)
     pcfg, pcfg1 = port_cfg(cfg), port_cfg(cfg1)
-    assert mimo.search_config(pcfg) == pcfg1
+    # the port's view is the JAX package's one pattern long
+    assert mimo.search_config(pcfg) == dataclasses.replace(
+        pcfg1, num_ofdm_symb=1 + cfg.synch_dat[1])
     tx = np.asarray(jmimo.tx_frame_mimo(cfg, jnp.asarray(_bits(cfg, 2,
                                                                (2,)))))
     y = _buffer(cfg, tx, 3, 30.0)
@@ -160,14 +162,20 @@ def test_search_at_slice_zero_equals_jax_einsum():
 
 
 @pytest.mark.parametrize("mode", ["spmult", "stcode"])
-@pytest.mark.parametrize("mod,snr_db", [("QPSK", 100.0), ("QPSK", 12.0),
-                                        ("QAM16", 22.0)])
-def test_rx_equals_jax(mode, mod, snr_db):
+@pytest.mark.parametrize("mod,snr_db,frame", [
+    pytest.param("QPSK", 100.0, {}, id="QPSK-100.0"),
+    pytest.param("QPSK", 12.0, {}, id="QPSK-12.0"),
+    pytest.param("QAM16", 22.0, {}, id="QAM16-22.0"),
+    pytest.param("QPSK", 12.0, dict(synch_dat=(2, 6), num_ofdm_symb=56),
+                 id="QPSK-12.0-2x6-56sym")])
+def test_rx_equals_jax(mode, mod, snr_db, frame):
     """rx_frame_mimo / rx_frame_stcode on one shared noisy buffer per
     frame, three frames as a frame axis: lock, delay, found, hard bits
     equal (up to phasors on a boundary), phasors and chan_freq within
-    2e-4; each row of the batch equals that frame alone."""
-    cfg = _cfg(modulation=mod, snr_db=snr_db)
+    2e-4; each row of the batch equals that frame alone.  Also at synch_dat
+    (2, 6) with 56 symbols (8 patterns a frame), a count whose (1, 6) view
+    the JAX package's search also accepts."""
+    cfg = _cfg(modulation=mod, snr_db=snr_db, **frame)
     pcfg = port_cfg(cfg)
     seed = {"QPSK": 10, "QAM16": 20}[mod] + int(snr_db)
     if mode == "spmult":

@@ -1,7 +1,8 @@
-"""The port's stage spans and counters (``utils/profiling.py``) in its two
+"""The port's stage spans and counters (``utils/profiling.py``) in its
 benchmarked steps, on the CPU: ``models/chain.py:chain_batch``,
-``runtime/stream.py:BatchReacqStreamingRx.push`` and
-``BatchTrackerStreamingRx.push``.
+``runtime/stream.py:BatchReacqStreamingRx.push``,
+``BatchTrackerStreamingRx.push`` and the 2x2 SpMult chain step
+(``models/mimo.py:make_mimo_chain``).
 
 Under ``torch.profiler`` every stage span of a step appears once a step,
 inside its root span, in the step's order; with the profiler off no
@@ -17,7 +18,7 @@ import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
 
-from lte_gnu_radio_code_tpu_torch.models import chain, rxofdm, txofdm
+from lte_gnu_radio_code_tpu_torch.models import chain, mimo, rxofdm, txofdm
 from lte_gnu_radio_code_tpu_torch.ops import channel
 from lte_gnu_radio_code_tpu_torch.runtime import stream as rt
 from lte_gnu_radio_code_tpu_torch.utils import profiling
@@ -32,7 +33,12 @@ STAGES = {
                                    "ofdm.demod", "ofdm.decide"]),
     "track": ("ofdm.chunk_step", ["ofdm.track", "ofdm.select",
                                   "ofdm.demod", "ofdm.decide"]),
+    "mimo": ("ofdm.chain_step", ["ofdm.tx", "ofdm.search", "ofdm.lock",
+                                 "ofdm.estimate", "ofdm.demod",
+                                 "ofdm.detect", "ofdm.demap"]),
 }
+MIMO_CFG = dataclasses.replace(GOLDEN64, synch_dat=(2, 6), num_ofdm_symb=16,
+                               num_ant_txrx=2, snr_db=20.0)
 
 
 @pytest.fixture(autouse=True)
@@ -99,8 +105,24 @@ def _track_steps():
     return [rx.push(c) for c in TRACK_CHUNKS]
 
 
-RUN = {"chain": _chain_steps, "stream": _stream_steps, "track": _track_steps}
-KINDS = pytest.mark.parametrize("kind", ["chain", "stream", "track"])
+def _mimo_steps():
+    """STEPS 2x2 SpMult chain steps of 2 frames at 20 dB on fixed bits
+    and noise, 16 symbols (two (2, 6) patterns) a frame."""
+    n = MIMO_CFG.frame_len + MIMO_CFG.nfft - 1
+    rng = np.random.default_rng(4)
+    bits = torch.from_numpy(rng.integers(0, 2, (STEPS, 2, 2,
+                                                MIMO_CFG.num_bits),
+                                         dtype=np.int32))
+    noise = torch.from_numpy((rng.standard_normal((STEPS, 2, 2, n)) + 1j *
+                              rng.standard_normal((STEPS, 2, 2, n))
+                              ).astype(np.complex64))
+    step = mimo.make_mimo_chain(MIMO_CFG, device="cpu")
+    return [step(bits[i], noise=noise[i]) for i in range(STEPS)]
+
+
+RUN = {"chain": _chain_steps, "stream": _stream_steps, "track": _track_steps,
+       "mimo": _mimo_steps}
+KINDS = pytest.mark.parametrize("kind", ["chain", "stream", "track", "mimo"])
 
 
 def _ofdm_spans(prof):
@@ -199,6 +221,19 @@ def test_tracker_counters_hold_the_steps_values():
     for a, b in zip(kept, fired):
         assert torch.equal(a, b)
     assert profiling.kept("ofdm.nothing") == []
+
+
+def test_mimo_detect_frames_counter_holds_the_steps_frames():
+    """The 2x2 step keeps ``ofdm.detect_frames``, its frame count, once a
+    step while the profiler records, and nothing with it off."""
+    outs = _mimo_steps()
+    assert profiling.counters() == {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = _mimo_steps()
+    assert bool(torch.stack([o.found for o in outs]).all())
+    assert profiling.counters() == {"ofdm.detect_frames": (STEPS * 2, STEPS)}
+    assert profiling.kept("ofdm.detect_frames") == [2] * STEPS
 
 
 def test_counters_sum_host_ints_and_device_values():
