@@ -72,10 +72,17 @@ Then the 2x2 paths.  ``mimo_run``: ``make_mimo_chain`` (SpMult) and
 synch_dat (2, 2), 1024 frames, and at the benchmark's lte2048_2x2 (20 MHz
 LTE, synch_dat (2, 6)), 8 frames, over the 2x2 Fading channel at 100 dB:
 every frame locked with BER 0, one K4 launch a step (ZC slice 0; the direct
-route at nfft 64, the FFT route at 2048) and no other kernel, kernel path
-== plain path, no host synchronisation in a step; WIFIMIMOSM-A also at its
-own 50 dB and lte2048_2x2 at 12 dB, kernel and plain paths within 1e-4 of
-the bits; K4 against its plain versions at the step's search shape.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
+route at nfft 64, the FFT route at 2048), the detection's two launches a
+SpMult step and no other kernel, kernel path == plain path, no host
+synchronisation in a step; WIFIMIMOSM-A also at its own 50 dB and
+lte2048_2x2 at 12 dB, kernel and plain paths within 1e-4 of the bits; K4
+against its plain versions at the step's search shape.  After the SpMult
+steps of lte2048_2x2 and WIFIMIMOSM-A, ``detect_run``: the detection's
+kernel pair (``kernels/mimo_detect.py``) at the l2k-2x2-link step's shape
+(lte2048_2x2 at 12 dB, 64 frames) and at WIFIMIMOSM-A b1024 (50 dB), on
+what the chain hands it, against its twin and timed beside it and the
+broadcast ``torch.matmul`` that computed W y before; its launch count is
+the one ``mimo_run`` counted a step.  ``pls_run``: ``key_exchange_synced`` on 256 exchanges over a
 flat and a Fading 2x2 channel delayed by 40 samples, noise-free (every key
 recovered) and at 40 dB, both locks as expected in every exchange.
 ``oracle_run``: the card's full-width paths against the port's numpy
@@ -248,6 +255,9 @@ CHASE_STEPS = 1 << 14
 # (2, 6), 64 symbols; K4's FFT route), also at 12 dB.
 MIMO_CELLS = (("MIMO test cfg", None, 128), ("WIFIMIMOSM-A", 1, 1024),
               ("LTE-20 2x2", "lte2048_2x2", 8))
+# the SpMult detection's kernel rows, by MIMO_CELLS' configuration: the
+# l2k-2x2-link step's 64 frames and WIFIMIMOSM-A at b1024, each at its own SNR
+DETECT_BATCH = {"lte2048_2x2": 64, 1: 1024}
 # PLS: exchanges a batch (bench_generations.py:67), the delay past the cp
 # and the search's span (tests/test_pls.py), the AWGN of that test
 PLS_BATCH = 256
@@ -308,6 +318,9 @@ SOURCES = {   # kernel -> (CUDA source, the TPU kernel's pallas_call)
                  "lte_gnu_radio_code_tpu/pallas_kernels/equalize.py:142"),
     "tracker": ("lte_gnu_radio_code_tpu_torch/csrc/tracker.cu",
                 "no pallas_call: lte_gnu_radio_code_tpu/models/tracker.py:217"),
+    "mimo_detect": ("lte_gnu_radio_code_tpu_torch/csrc/mimo_detect.cu",
+                    "no pallas_call: XLA in lte_gnu_radio_code_tpu/models/"
+                    "mimo.py:rx_frame_mimo"),
 }
 
 
@@ -827,7 +840,7 @@ def chain_run(cfg, batch, dev, cell, max_ber=0.0) -> dict:
                              f"{max_ber} ({int((ber > 0).sum())} frames with "
                              f"errors, the worst {float(ber.max())})")
     if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, CHAIN_REPS),
-                  "tracker": 0}:
+                  "tracker": 0, "mimo_detect": 0}:
         raise AssertionError(f"{cell}: launches {counts} over {CHAIN_REPS} "
                              "steps, expected one of each kernel a step")
     routes = dict(sync_search.route_launches)           # of the last round
@@ -2514,7 +2527,7 @@ def cli_check(dev) -> None:
     counts = kernels.launch_counts()
     want = {"found": True, "lock_ptr": 16, "delay_idx": 1, "ber": 0.0}
     if out != want or counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 1),
-                                 "tracker": 0}:
+                                 "tracker": 0, "mimo_detect": 0}:
         raise AssertionError(f"cli.ofdm_chain: {out} (expected {want}), "
                              f"launches {counts}")
     print(f"cli.ofdm_chain on the card: {out}, launches {counts}")
@@ -2530,7 +2543,7 @@ def cli_check(dev) -> None:
     want = {"found": True, "lock_ptr": 16, "delay_idx": 0, "ber": 0.0}
     if (out != want or
             counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 3),
-                       "tracker": 0} or
+                       "tracker": 0, "mimo_detect": 0} or
             not 0.01 < rows[0]["ber"] < 0.3 or rows[1]["ber"] != 0.0):
         raise AssertionError(f"cli.ofdm_chain on tx16qam.json: {out} "
                              f"(expected {want}); cli.ber_sweep: {rows}; "
@@ -2567,7 +2580,8 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
     kernel path == plain path (CPU copies) on one noise tensor, no host
     synchronisation in a step; at the configuration's own SNR kernel and
     plain paths within 1e-4 of the bits; K4 against its plain versions at
-    the step's search shape (ZC slice 0).  The K4 route is the rule's at
+    the step's search shape (ZC slice 0).  A SpMult step also launches the
+    detection's two kernels.  The K4 route is the rule's at
     the search view's shape (direct at nfft 64, FFT at LTE widths).
     Returns the cells' entries of the kernels line."""
     from lte_gnu_radio_code_tpu_torch import kernels
@@ -2610,15 +2624,17 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
         found = torch.stack([r.found for r in results])
         ber = torch.stack([r.ber for r in results])
         locks = torch.stack([r.lock_ptr for r in results]).unique().tolist()
+        detects = 2 * CHAIN_REPS * (mode == "SpMult")
         if (counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 0),
-                       "sync_search": CHAIN_REPS} or
+                       "sync_search": CHAIN_REPS, "mimo_detect": detects} or
                 routes != {r: CHAIN_REPS * (r == kind) for r in routes} or
                 sync_search.peak_launches != routes):
             raise AssertionError(f"{cell}: launches {counts}, sync_search by "
                                  f"route {routes}, in the peaks form "
                                  f"{sync_search.peak_launches} over "
                                  f"{CHAIN_REPS} steps, expected one {kind} "
-                                 "K4 launch a step in the peaks form")
+                                 "K4 launch a step in the peaks form (and "
+                                 "two of the detection a SpMult step)")
         if not bool(found.all()) or float(ber.max()) != 0.0:
             raise AssertionError(f"{cell}: {int((~found).sum())} frames "
                                  f"unlocked, worst BER {float(ber.max())}")
@@ -2680,7 +2696,59 @@ def mimo_run(name, sdr_profile, batch, dev, gpu) -> list:
         print_kernel_rows(cell, {"sync_search": c})
         entries.append(kernel_entry("sync_search", cell,
                                     counts["sync_search"], c))
+        if mode == "SpMult" and sdr_profile in DETECT_BATCH:
+            entries += detect_run(name, sdr_profile,
+                                  DETECT_BATCH[sdr_profile], dev, gpu,
+                                  counts["mimo_detect"] // CHAIN_REPS)
     return entries
+
+
+def detect_run(name, sdr_profile, batch, dev, gpu, launches) -> list:
+    """The SpMult detection's kernel pair at a 2x2 cell's step shape, on
+    what ``rx_frame_mimo`` hands it (seeded frames through TX, the 2x2
+    Fading channel and AWGN at the configuration's own SNR, then
+    ``mimo._front``; every frame locked): against its twin within 1e-5,
+    timed from a cold L2 beside the twin and the library call, the old
+    body's broadcast ``torch.matmul`` of W with every data symbol (cuBLAS's
+    batched gemv).  Bytes and operations as ``ofdm_bench/metrics/
+    detect_roofline.py`` counts them: the data bins and H on them read
+    once, both layers written once; 80 operations a bin, 40 a symbol-bin.
+    ``launches``: the pair's launches a step that ``mimo_run`` counted on
+    the main path.  Returns the cell's entry of the kernels line."""
+    from lte_gnu_radio_code_tpu_torch.kernels import mimo_detect
+    from lte_gnu_radio_code_tpu_torch.models import mimo
+    from lte_gnu_radio_code_tpu_torch.ops import channel, sync
+
+    _, cfg = mimo_config(sdr_profile)
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = mimo.plan(cfg, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bits = torch.randint(0, 2, (batch, 2, cfg.num_bits), generator=gen,
+                         device=dev, dtype=torch.int32)
+    sig = mimo.tx_frame_mimo(cfg, bits)
+    clean = channel.apply_channel_mimo(sig, torch.as_tensor(
+        channel.mimo2_taps("Fading"), device=dev), max_impulse=cfg.nfft)
+    y = channel.awgn(cfg, clean, (sig.abs() ** 2).mean((-2, -1))[
+        ..., None, None], generator=gen)
+    _, _, found, chan, fd = mimo._front(cfg, y, n_trials, num_patterns)
+    cell = f"{name} detection b{batch}"
+    if not bool(found.all()):
+        raise AssertionError(f"{cell}: {int((~found).sum())} frames unlocked")
+    bins = sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
+    inv_snr = 1.0 / cfg.snr_linear
+    kn, nb = fd.shape[-2:]
+    hd = chan[..., bins].movedim(-1, -3)
+    hh = hd.conj().transpose(-1, -2)
+    w = mimo_detect.inv2x2(hh @ hd + inv_snr * torch.eye(
+        2, dtype=hd.dtype, device=dev)) @ hh
+    yv = fd.movedim(-3, -1)[..., None]
+    c = compare(cell, lambda: mimo_detect.detect(fd, chan, bins, inv_snr),
+                lambda: mimo_detect.detect_plain(fd, chan, bins, inv_snr),
+                (fd, chan[..., bins]), batch * nb * (80 + 40 * kn),
+                lambda: w[..., None, :, :, :] @ yv, atol=1e-5)
+    print(f"{cell} [{batch}, 2, {kn}, {nb}] at {cfg.snr_db} dB on {gpu}:")
+    print_kernel_rows(cell, {"mimo_detect": c})
+    return [kernel_entry("mimo_detect", cell, launches, c)]
 
 
 def pls_channels():
@@ -3418,7 +3486,8 @@ def sharded_chain_run(cfg_name, batch, t, dev, gpu) -> tuple:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     ref = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
-    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}:
+    if counts != {**dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0,
+                  "mimo_detect": 0}:
         raise AssertionError(f"{cell}: launches {counts}, expected one of "
                              "each of K1-K4")
     if not bool(found.all()) or float(ber.max()) != 0.0:

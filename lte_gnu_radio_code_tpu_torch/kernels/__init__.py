@@ -2,7 +2,8 @@
 PyTorch twin, and their launch counts.
 
 K1 ``ofdm_mod``, K2 ``equalize``, K3 ``channel_conv``, K4 ``sync_search``,
-and ``tracker`` (the tracker's step loop, which has no Pallas kernel).
+``tracker`` (the tracker's step loop) and ``mimo_detect`` (the 2x2 LMMSE
+detection, a pair of kernels), the last two with no Pallas kernel behind.
 Each module keeps ``launches``, a plain int that its wrapper raises by one
 per kernel launch (the twin never counts); K4 and the tracker also keep
 ``route_launches``, the same launches by route, and K4 ``peak_launches``,
@@ -15,7 +16,7 @@ the launches its capture made).
 import functools
 
 KERNEL_MODULES = ("ofdm_mod", "equalize", "channel_conv", "sync_search",
-                  "tracker")
+                  "tracker", "mimo_detect")
 
 
 @functools.cache

@@ -37,6 +37,8 @@ SIGNATURES = {
                         _P, _P),
     "sync_search_direct": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P, _P),
+    "mimo_detect_power": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),
+    "mimo_detect_scale": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
 }
 # the tracker's two routes take the same arguments (csrc/tracker.cu)
 SIGNATURES["tracker_scan"] = SIGNATURES["tracker_scan_warp"] = (

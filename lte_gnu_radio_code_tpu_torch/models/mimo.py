@@ -4,23 +4,24 @@ leaves unimplemented (MultiAntennaSystem.multi_ant_binary_map:184-186,
 RxBasebandSystem.rx_data_demod:313-318).
 
 Port of ``lte_gnu_radio_code_tpu/models/mimo.py`` (``MimoRxResult``,
-``StcRxResult``, ``tx_frame_mimo``, ``_inv2x2``, ``rx_frame_mimo``,
-``tx_frame_stcode``, ``rx_frame_stcode``, ``make_mimo_chain``,
-``make_stcode_chain``), its docstrings giving the design: synch_dat =
-(2, nd), the pattern's two synch symbols carry ZC slice 0 on antenna 0 and
-slice 1 on antenna 1, so the receiver estimates the whole 2x2 channel per
-bin.  Every function takes leading frame axes: bits [..., 2, n] or
-[..., n], signals [..., 2, T].
+``StcRxResult``, ``tx_frame_mimo``, ``rx_frame_mimo``, ``tx_frame_stcode``,
+``rx_frame_stcode``, ``make_mimo_chain``, ``make_stcode_chain``; its
+``_inv2x2`` is ``kernels/mimo_detect.py:inv2x2``), its docstrings giving
+the design: synch_dat = (2, nd), the pattern's two synch symbols carry ZC
+slice 0 on antenna 0 and slice 1 on antenna 1, so the receiver estimates
+the whole 2x2 channel per bin.  Every function takes leading frame axes:
+bits [..., 2, n] or [..., n], signals [..., 2, T].
 
 The search runs on RX antenna 0 against slice 0 alone: K4
 (``kernels/sync_search.py``) with the single-synch view of the config
 (:func:`search_config`) and the ZC slice as its sequence, then
-``ops/sync.py:lock_from_peaks``.  Pilots, data windows and the per-bin 2x2
-detection stay raw and in plain torch: K2 would normalise each window's
-power, which the receiver leaves to one scale per stream at the end, and
-the TX norms are not K1's.  The chains run on the CUDA device unless asked
-for the CPU, and draw their noise from a ``torch.Generator`` or take a
-noise tensor.
+``ops/sync.py:lock_from_peaks``.  Pilots and data windows stay raw and in
+plain torch: K2 would normalise each window's power, which the receiver
+leaves to one scale per stream at the end, and the TX norms are not K1's.
+The SpMult detection (W, W y, each layer's unit power) is the kernel pair
+of ``kernels/mimo_detect.py``; the Alamouti combining stays plain torch.
+The chains run on the CUDA device unless asked for the CPU, and draw their
+noise from a ``torch.Generator`` or take a noise tensor.
 
 Tracing (``utils/profiling.py``): a chain step is the root span
 ``ofdm.chain_step``; inside it ``ofdm.tx`` (both antennas' TX, the 2x2
@@ -44,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import sync_search
+from ..kernels import mimo_detect, sync_search
 from ..ops import channel as chan_ops
 from ..ops import modulation, sync
 from ..ops.zadoff_chu import zc_for_config
@@ -244,16 +245,6 @@ def tx_frame_stcode(cfg: OFDMConfig, bits: torch.Tensor) -> torch.Tensor:
 
 # -- RX ----------------------------------------------------------------------
 
-def _inv2x2(h: torch.Tensor) -> torch.Tensor:
-    """Batched closed-form inverse of [..., 2, 2] complex matrices."""
-    a, b = h[..., 0, 0], h[..., 0, 1]
-    c, d = h[..., 1, 0], h[..., 1, 1]
-    inv_det = 1.0 / (a * d - b * c)
-    row0 = torch.stack([d, -b], -1)
-    row1 = torch.stack([-c, a], -1)
-    return torch.stack([row0, row1], -2) * inv_det[..., None, None]
-
-
 def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
            num_patterns: int):
     """What both modes share: the search on RX antenna 0 against slice 0,
@@ -296,12 +287,6 @@ def _front(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     return ptr, delay, found, chan, fd
 
 
-def _unit_power(ph: torch.Tensor) -> torch.Tensor:
-    """Scaled to unit mean power over the last two axes."""
-    p = (ph.abs() ** 2).mean((-2, -1), keepdim=True)
-    return ph * torch.rsqrt(p.clamp_min(1e-30))
-
-
 def _hard(cfg: OFDMConfig, ph: torch.Tensor) -> torch.Tensor:
     """Hard bits of each stream [..., K, B] -> [..., K*B*bits_per_bin]:
     the QPSK demap with its sigma over the stream alone, else max-log at
@@ -325,16 +310,9 @@ def rx_frame_mimo(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
     ``ofdm.detect_frames``."""
     _check(cfg)
     ptr, delay, found, chan, fd = _front(cfg, y, n_trials, num_patterns)
-    dev = y.device
     with profiling.span("ofdm.detect"):
-        hd = chan[..., sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
-        hd = hd.movedim(-1, -3)                         # [..., B, rx, tx]
-        hh = hd.conj().transpose(-1, -2)
-        eye = torch.eye(2, dtype=hd.dtype, device=dev)
-        w = _inv2x2(hh @ hd + (1.0 / cfg.snr_linear) * eye) @ hh
-        yv = fd.movedim(-3, -1)[..., None]              # [..., KN, B, 2, 1]
-        xhat = (w[..., None, :, :, :] @ yv)[..., 0]     # [..., KN, B, 2]
-        ph = _unit_power(xhat.movedim(-1, -3))          # [..., 2, KN, B]
+        ph = mimo_detect.detect(fd, chan, sync._bins_on(
+            y.device, cfg.nfft, cfg.num_data_bins), 1.0 / cfg.snr_linear)
     profiling.count("ofdm.detect_frames", found.numel())
     with profiling.span("ofdm.demap"):
         hard = _hard(cfg, ph)
@@ -362,8 +340,8 @@ def rx_frame_stcode(cfg: OFDMConfig, y: torch.Tensor, n_trials: int,
         norm = (hd.abs() ** 2).sum((-3, -2))[..., None, None, :] + \
             2.0 / cfg.snr_linear
         shat = torch.stack([s0 / norm, s1 / norm], -2)  # [..., K, P, 2, B]
-        ph = _unit_power(shat.reshape(*shat.shape[:-4], num_patterns * nd,
-                                      nb))
+        ph = mimo_detect.unit_power(shat.reshape(
+            *shat.shape[:-4], num_patterns * nd, nb))
     with profiling.span("ofdm.demap"):
         hard = _hard(cfg, ph)
     return StcRxResult(ph, hard, ptr, delay, found, chan)

@@ -20,7 +20,8 @@ pilot shapes, and the kernel path against the plain path for the QAM chain,
 the pilot chain, ``rx_frame_cfo`` and ``LegacyStreamingRx``.  The 2x2
 MIMO chains: K4 at ZC slice 0 on both routes, the kernel path against the
 plain path, one K4 launch a step, no host synchronisation, at nfft 64 and
-at 20 MHz LTE widths (SpMult, the FFT route); a batch of PLS
+at 20 MHz LTE widths (SpMult, the FFT route), and the SpMult detection's
+kernel pair against its twin at the three MIMO shapes; a batch of PLS
 key exchanges on the card; the native ring's chunks into a receiver on
 the card.  The sharded runtime (``parallel/``): the sharded RX, the dp x t
 chain and the sharded reacq and legacy chunk steps on the kernels against
@@ -43,8 +44,8 @@ import torch
 
 from lte_gnu_radio_code_tpu_torch import kernels
 from lte_gnu_radio_code_tpu_torch.kernels import (_cuda, channel_conv,
-                                                  equalize, fft, ofdm_mod,
-                                                  sync_search)
+                                                  equalize, fft, mimo_detect,
+                                                  ofdm_mod, sync_search)
 from lte_gnu_radio_code_tpu_torch.models import (chain, legacy_rx, mimo,
                                                  rxofdm, split, stream_rx,
                                                  txofdm)
@@ -486,7 +487,7 @@ def test_chain_batch_through_kernels(dev):
     r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
     counts = kernels.launch_counts()
     assert counts == {**dict.fromkeys(kernels.KERNEL_MODULES, 1),
-                      "tracker": 0}, counts
+                      "tracker": 0, "mimo_detect": 0}, counts
     assert bool(r.found.all()) and float(r.ber.max()) == 0.0
     p = _moved(chain.chain_batch(cfg, h, n_trials, num_patterns, bits.cpu(),
                                  noise=noise.cpu()), dev)
@@ -888,7 +889,8 @@ def test_cli_loopback_runs_on_the_card(dev):
     assert out == {"found": True, "lock_ptr": 16, "delay_idx": 1,
                    "ber": 0.0}
     assert kernels.launch_counts() == {
-        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}
+        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0,
+        "mimo_detect": 0}
 
 
 PILOT_CFGS = pytest.mark.parametrize("cfg", [
@@ -952,7 +954,8 @@ def test_qam_and_pilot_chain_kernel_path_equals_plain(dev, cfg):
     kernels.reset_launch_counts()
     r = chain.chain_batch(cfg, h, n_trials, num_patterns, bits, noise=noise)
     assert kernels.launch_counts() == {
-        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0}
+        **dict.fromkeys(kernels.KERNEL_MODULES, 1), "tracker": 0,
+        "mimo_detect": 0}
     assert bool(r.found.all()) and float(r.ber.max()) == 0.0
     p = _moved(chain.chain_batch(cfg, h, n_trials, num_patterns, bits.cpu(),
                                  noise=noise.cpu()), dev)
@@ -1412,12 +1415,13 @@ def test_tracker_stream_on_the_card(dev):
 
 # -- 2x2 MIMO, PLS and the native ring on the card ------------------------------
 
-MIMO_CFGS = pytest.mark.parametrize("cfg", [
+MIMO_CFG_LIST = [
     dataclasses.replace(GOLDEN64, synch_dat=(2, 2), num_ofdm_symb=48,
                         num_ant_txrx=2),
     dataclasses.replace(config_from_profile(SDR_PROFILES[1]),
-                        synch_dat=(2, 2), snr_db=100.0)],
-    ids=["test-cfg", "wifimimosm-a"])
+                        synch_dat=(2, 2), snr_db=100.0)]
+MIMO_CFGS = pytest.mark.parametrize("cfg", MIMO_CFG_LIST,
+                                    ids=["test-cfg", "wifimimosm-a"])
 
 
 @MIMO_CFGS
@@ -1465,6 +1469,7 @@ def test_mimo_kernel_path_equals_plain_path(dev, cfg, mode):
         before = dict(sync_search.route_launches)
         rk = make(c)(bits, noise=noise)
         assert kernels.launch_counts()["sync_search"] == 1
+        assert mimo_detect.launches == 2 * (mode == "spmult")
         assert sync_search.route_launches == {
             **before, "direct": before["direct"] + 1}
         rp = _moved(make(c, device="cpu")(bits.cpu(), noise=noise.cpu()),
@@ -1510,6 +1515,7 @@ def test_mimo_lte20_step_kernel_path_equals_plain_path(dev):
                   dict(sync_search.peak_launches))
         rk = mimo.make_mimo_chain(cfg)(bits, noise=noise)
         assert kernels.launch_counts()["sync_search"] == 1
+        assert mimo_detect.launches == 2
         assert sync_search.route_launches == {
             **before[0], "fft": before[0]["fft"] + 1}
         assert sync_search.peak_launches == {
@@ -1534,6 +1540,69 @@ def test_mimo_lte20_step_kernel_path_equals_plain_path(dev):
         step(bits, noise=noise)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+DETECT_CELLS = pytest.mark.parametrize("cfg,frames", [
+    (MIMO_CFG_LIST[0], 16), (dataclasses.replace(MIMO_CFG_LIST[1],
+                                                 snr_db=50.0), 16),
+    (dataclasses.replace(L2K_2X2, snr_db=12.0), 8)],
+    ids=["test-cfg", "wifimimosm-a", "lte2048_2x2"])
+
+
+def _detect_inputs(cfg, frames, dev, seed):
+    """What ``rx_frame_mimo`` hands the detection: the data bins and the
+    2x2 estimate of seeded frames through the 2x2 Fading channel and AWGN
+    at cfg's SNR, and the data bins' index table; every frame locked."""
+    n = cfg.frame_len + cfg.nfft - 1
+    n_trials, num_patterns = mimo.plan(cfg, n)
+    bits = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2, (frames, 2, cfg.num_bits), dtype=np.int32)).to(dev)
+    sig = mimo.tx_frame_mimo(cfg, bits)
+    clean = channel.apply_channel_mimo(sig, torch.as_tensor(
+        channel.mimo2_taps("Fading"), device=dev), max_impulse=cfg.nfft)
+    y = channel.awgn(cfg, clean, (sig.abs() ** 2).mean((-2, -1))[
+        ..., None, None], noise=_cplx(dev, seed + 1, frames, 2, n))
+    _, _, found, chan, fd = mimo._front(cfg, y, n_trials, num_patterns)
+    assert bool(found.all())
+    return fd, chan, sync._bins_on(dev, cfg.nfft, cfg.num_data_bins)
+
+
+@DETECT_CELLS
+def test_mimo_detect_kernel_equals_twin(dev, cfg, frames):
+    """The detection's kernel pair (``kernels/mimo_detect.py``) at the
+    three MIMO shapes, on what the chain hands it, with lead dims [frames],
+    [] and [0]: within 1e-5 of the twin (on CPU copies), the same QPSK
+    decisions where the twin's rail lies farther than 1e-4 from a
+    boundary, contiguous, two launches a call (none on zero frames), and
+    a rerun bit-identical; y off 16 bytes and an odd B within 1e-5 of the
+    twin too."""
+    fd, chan, bins = _detect_inputs(cfg, frames, dev, seed=61)
+    inv_snr = 1.0 / cfg.snr_linear
+
+    def held(fd, chan, bins, launched):
+        mimo_detect.launches = 0
+        got = mimo_detect.detect(fd, chan, bins, inv_snr)
+        assert mimo_detect.launches == launched
+        want = mimo_detect.detect_plain(fd.cpu(), chan.cpu(), bins.cpu(),
+                                        inv_snr)
+        assert got.shape == want.shape and got.is_contiguous()
+        if not got.numel():
+            return got
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+        differ = (mimo._hard(cfg, got).cpu() != mimo._hard(cfg, want))
+        margin = rail_margin(want.numpy()).reshape(differ.shape)
+        assert not (differ.numpy() & (margin > 1e-4)).any()
+        return got
+
+    got = held(fd, chan, bins, 2)
+    assert torch.equal(got, mimo_detect.detect(fd, chan, bins, inv_snr))
+    held(fd[0], chan[0], bins, 2)
+    held(fd[:0], chan[:0], bins, 0)
+    off = torch.empty(fd.numel() + 1, dtype=fd.dtype, device=dev)[1:]
+    off = off.view(fd.shape).copy_(fd)
+    assert off.data_ptr() % 16 == 8
+    held(off, chan, bins, 2)
+    held(fd[..., :-1].contiguous(), chan, bins[:-1].contiguous(), 2)
 
 
 def test_pls_exchange_on_the_card(dev):
@@ -1645,7 +1714,7 @@ def test_sharded_chain_equals_chain_batch_on_the_card(dev):
     ber, found, lock = pchain.make_sharded_chain(
         cfg, mesh.make_mesh(4, dp=2))(bits, noise=noise)
     assert kernels.launch_counts() == {**dict.fromkeys(
-        kernels.KERNEL_MODULES, 1), "tracker": 0}
+        kernels.KERNEL_MODULES, 1), "tracker": 0, "mimo_detect": 0}
     n_trials, num_patterns = rxofdm.plan_rx(cfg, n)
     ref = chain.chain_batch(cfg, chain.loopback_taps(cfg), n_trials,
                             num_patterns, bits, noise=noise)

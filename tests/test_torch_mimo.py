@@ -27,9 +27,11 @@ from lte_gnu_radio_code_tpu.ops import channel as jchan
 from lte_gnu_radio_code_tpu.ops import sync as jsync
 from lte_gnu_radio_code_tpu.ops import zadoff_chu as jzc
 from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
-from lte_gnu_radio_code_tpu_torch.kernels import sync_search
+from lte_gnu_radio_code_tpu_torch import kernels
+from lte_gnu_radio_code_tpu_torch.kernels import mimo_detect, sync_search
 from lte_gnu_radio_code_tpu_torch.models import mimo
 from lte_gnu_radio_code_tpu_torch.ops import channel, fast_sync
+from lte_gnu_radio_code_tpu_torch.ops import sync as tsync
 from lte_gnu_radio_code_tpu_torch.ops.zadoff_chu import zc_for_config
 from lte_gnu_radio_code_tpu_torch.utils import params as tparams
 from lte_gnu_radio_code_tpu_torch.utils.tables import device_table
@@ -220,11 +222,115 @@ def test_inv2x2_equals_jax():
     rng = np.random.default_rng(4)
     h = (rng.standard_normal((50, 2, 2)) +
          1j * rng.standard_normal((50, 2, 2))).astype(np.complex64)
-    ours = mimo._inv2x2(torch.from_numpy(h)).numpy()
+    ours = mimo_detect.inv2x2(torch.from_numpy(h)).numpy()
     np.testing.assert_allclose(ours, np.asarray(jmimo._inv2x2(
         jnp.asarray(h))), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(ours @ h, np.broadcast_to(np.eye(2), h.shape),
                                atol=1e-4)
+
+
+# The three shapes the detection runs at: tests/test_mimo.py's config (nfft
+# 64, 24 data symbols x 60 bins), the reference's WIFIMIMOSM-A profile with
+# synch_dat (2, 2) (6 x 56) and the benchmark's lte2048_2x2 (48 x 1200).
+DETECT_CFGS = {
+    "test-cfg": lambda: port_cfg(_cfg()),
+    "wifimimosm-a": lambda: dataclasses.replace(tparams.config_from_profile(
+        tparams.SDR_PROFILES[1]), synch_dat=(2, 2)).validate(),
+    "lte2048_2x2": lambda: dataclasses.replace(
+        tparams.LTE2048, synch_dat=(2, 6), num_ant_txrx=2,
+        snr_db=12.0).validate()}
+
+
+def _old_detect(cfg, fd, chan):
+    """The detection as ``rx_frame_mimo`` ran it inline before the kernel
+    pair, its ``_inv2x2`` and ``_unit_power`` with it."""
+    def inv2x2(h):
+        a, b = h[..., 0, 0], h[..., 0, 1]
+        c, d = h[..., 1, 0], h[..., 1, 1]
+        inv_det = 1.0 / (a * d - b * c)
+        row0 = torch.stack([d, -b], -1)
+        row1 = torch.stack([-c, a], -1)
+        return torch.stack([row0, row1], -2) * inv_det[..., None, None]
+
+    def unit_power(ph):
+        p = (ph.abs() ** 2).mean((-2, -1), keepdim=True)
+        return ph * torch.rsqrt(p.clamp_min(1e-30))
+
+    dev = fd.device
+    hd = chan[..., tsync._bins_on(dev, cfg.nfft, cfg.num_data_bins)]
+    hd = hd.movedim(-1, -3)
+    hh = hd.conj().transpose(-1, -2)
+    eye = torch.eye(2, dtype=hd.dtype, device=dev)
+    w = inv2x2(hh @ hd + (1.0 / cfg.snr_linear) * eye) @ hh
+    yv = fd.movedim(-3, -1)[..., None]
+    xhat = (w[..., None, :, :, :] @ yv)[..., 0]
+    return unit_power(xhat.movedim(-1, -3))
+
+
+def _c64(rng, *shape):
+    return torch.from_numpy((rng.standard_normal(shape) + 1j *
+                             rng.standard_normal(shape)).astype(np.complex64))
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (0,)], ids=["[]", "[3]", "[0]"])
+@pytest.mark.parametrize("name", list(DETECT_CFGS))
+def test_detect_twin_is_the_old_body(name, lead, monkeypatch):
+    """``kernels/mimo_detect.py``: on CPU tensors the wrapper runs the twin,
+    which gives the old inline body's phasors bit for bit, contiguous; a
+    wrong dtype, shape or a non-contiguous input raises; its CUDA branch
+    (launches recorded, not made) makes the two launches with the
+    signatures' arity, one grid for both, none for zero frames."""
+    from lte_gnu_radio_code_tpu_torch.kernels import _cuda
+    from torch_parity import recorded_launch
+
+    cfg = DETECT_CFGS[name]()
+    kn, nb = cfg.num_data_symb, cfg.num_data_bins
+    rng = np.random.default_rng(60)
+    fd, chan = _c64(rng, *lead, 2, kn, nb), _c64(rng, *lead, 2, 2, cfg.nfft)
+    bins = tsync._bins_on(CPU, cfg.nfft, nb)
+    inv_snr = 1.0 / cfg.snr_linear
+    want = _old_detect(cfg, fd, chan)
+    twin = mimo_detect.detect_plain(fd, chan, bins, inv_snr)
+    got = mimo_detect.detect(fd, chan, bins, inv_snr)
+    assert torch.equal(twin, want) and torch.equal(got, want)
+    assert got.shape == (*lead, 2, kn, nb) and got.is_contiguous()
+
+    wrong = [(fd.to(torch.complex128), chan, bins),
+             (fd, chan.to(torch.complex128), bins),
+             (fd, chan, bins.to(torch.int32)),
+             (fd[..., :1, :, :], chan, bins),
+             (fd, chan[..., :1, :], bins),
+             (fd, chan, bins[1:]),
+             (fd[..., :-1], chan, bins)]
+    if lead:
+        wrong.append((fd, chan[None], bins))
+    if fd.numel():      # an empty tensor is contiguous whatever its strides
+        wrong += [(fd.mT.contiguous().mT, chan, bins),
+                  (fd, chan.mT.contiguous().mT, bins)]
+    for args in wrong:
+        with pytest.raises(ValueError):
+            mimo_detect.detect(*args, inv_snr)
+
+    calls = []
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "launch", recorded_launch(calls))
+    kernels.reset_launch_counts()
+    out = mimo_detect.detect(fd, chan, bins, inv_snr)
+    assert out.shape == fd.shape and out.is_contiguous()
+    frames = int(np.prod(lead, dtype=int))
+    if not frames:
+        assert calls == [] and mimo_detect.launches == 0
+        return
+    assert [n for n, _ in calls] == ["mimo_detect_power",
+                                     "mimo_detect_scale"]
+    for n, args in calls:
+        assert len(args) + 1 == len(_cuda.SIGNATURES[n]), n
+    power, scale = calls[0][1], calls[1][1]
+    assert scale[:-1] == power and scale[-1] == out.data_ptr()
+    parts = -(-kn // mimo_detect.SYMBOLS) * -(-nb // mimo_detect.BLOCK)
+    assert power[3:8] == (frames, kn, nb, cfg.nfft, parts)
+    assert mimo_detect.launches == 2
+    kernels.reset_launch_counts()
 
 
 def test_wrong_configs_raise():
